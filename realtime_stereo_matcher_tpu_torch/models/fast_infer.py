@@ -1,0 +1,75 @@
+"""Kernel-path inference for MobileStereoNet v1 (port of
+``realtime_stereo_matcher_tpu/models/fast_infer.py``).
+
+``make_fast_forward(model)`` returns ``forward(left, right) -> [negative
+disparity maps]`` that computes ``model(left, right)`` (eval mode) with every
+convolution on the hand-written kernels: per frame, 56 stride-1 3x3 launches
+(7 per view in the encoder, 14 per RefineNet), 6 stride-2 launches (3 per
+view) and 5 3x3x3 launches (the cost filter).  Normalization, the cost
+volume, soft-argmin and the resizes are plain PyTorch, as they were plain
+XLA in the JAX package.
+
+Inputs are zero-padded to a multiple of 2^down_factor, exactly as the model
+pads them; the TPU-only alignment pad of the JAX package is not needed.
+Weights are folded once, here, in the path's dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from realtime_stereo_matcher_tpu_torch.kernels.cost_filter3d import (
+    build_cost_filter_plan,
+    fast_cost_filter,
+)
+from realtime_stereo_matcher_tpu_torch.kernels.encoder import (
+    build_encoder_plan,
+    fast_encoder,
+)
+from realtime_stereo_matcher_tpu_torch.kernels.refine_stack import (
+    build_refine_plan,
+    fast_refine,
+)
+from realtime_stereo_matcher_tpu_torch.models.layers import normalize_images
+from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
+    MobileStereoNet,
+    _coarse_disparity,
+    _full_res_nearest,
+)
+from realtime_stereo_matcher_tpu_torch.ops import pad_to_multiple
+
+
+def make_fast_forward(model: MobileStereoNet, *, dtype=torch.bfloat16):
+    """Build the kernel-path forward of a v1 model (batch any, eval mode).
+
+    The returned function takes NHWC uint8-range images on the model's
+    device and returns 3 (B, H, W, 1) float32 negative disparity maps,
+    coarse to fine."""
+    if type(model) is not MobileStereoNet:
+        raise NotImplementedError(
+            f"the kernel path supports MobileStereoNet v1, not "
+            f"{type(model).__name__}; see ROADMAP.md")
+    down = model.down_factor
+    align = 2 ** down
+    vol_disp = (model.max_disp + 1) // align
+    enc_plan = build_encoder_plan(model.feature_extractor, dtype=dtype)
+    cf_plan = build_cost_filter_plan(model.cost_filter, dtype=dtype)
+    refine_plans = [build_refine_plan(r, dtype=dtype)
+                    for r in model.refine_layer]
+
+    @torch.no_grad()
+    def forward(left_img, right_img):
+        left, orig_hw = pad_to_multiple(normalize_images(left_img, dtype), align)
+        right, _ = pad_to_multiple(normalize_images(right_img, dtype), align)
+        lf = fast_encoder(left, enc_plan)
+        rf = fast_encoder(right, enc_plan)
+        x = _coarse_disparity(lf, rf, vol_disp,
+                              lambda vol: fast_cost_filter(vol, cf_plan))
+        multi_scale = []
+        out_hw = left.shape[1:3]
+        for plan in refine_plans:
+            x = fast_refine(x, left, plan)
+            multi_scale.append(_full_res_nearest(x, out_hw, orig_hw))
+        return [-1.0 * m for m in multi_scale]
+
+    return forward
