@@ -6,7 +6,8 @@
 //   realtime_stereo_matcher_tpu/kernels/cost_filter3d.py  fused_conv3d_flat
 //   (body _build_kernel, launcher _conv3d_call), run five times by
 //   fast_cost_filter: four 32 -> 32 conv+BN+ReLU layers and a 32 -> 1 conv
-//   with bias.
+//   with bias.  Training (kernels/train_conv3d.py) also runs it on the
+//   cotangent for dx, which adds the 1 -> 32 case.
 // The TPU kernel's lane fold and pixel phases are not carried over; this
 // computes the same function on the plain channels-last volume.
 //
@@ -36,6 +37,7 @@ cudaError_t dispatch(const void* x, const void* w, const void* scale,
                                              0.f, st);
   RSM_CASE(32, 32)
   RSM_CASE(32, 1)
+  RSM_CASE(1, 32)  // dx of the 32 -> 1 head (training)
 #undef RSM_CASE
   return cudaErrorInvalidValue;
 }

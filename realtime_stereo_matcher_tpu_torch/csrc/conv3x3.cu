@@ -5,7 +5,9 @@
 //   K1  realtime_stereo_matcher_tpu/kernels/conv3x3.py  fused_conv3x3_flat
 //       (body _build_kernel, launcher _conv_call): stride-1 dilated 3x3 conv
 //       with BN-fold, ReLU / leaky / none, and a residual after the
-//       activation.
+//       activation.  Training (kernels/train_conv.py, the port of K5
+//       flat_conv3x3) runs it for the forward and for dx, which adds the
+//       32 -> 4 and 1 -> 32 cases.
 //   K2  realtime_stereo_matcher_tpu/kernels/conv3x3.py  fused_conv3x3_s2_flat
 //       (body _build_s2_kernel, launcher _conv_s2_call): the stride-2 3x3
 //       conv that halves H and W.  The 4x4 TF-SAME form (v3 U-Net) is not
@@ -47,6 +49,8 @@ cudaError_t dispatch(const void* x, const void* w, const void* scale,
     RSM_CASE(32, 32)
     RSM_CASE(4, 32)
     RSM_CASE(32, 1)
+    RSM_CASE(32, 4)  // dx of the 4 -> 32 refine entry conv (training)
+    RSM_CASE(1, 32)  // dx of the 32 -> 1 refine head (training)
   } else {
     RSM_CASE(32, 32)
     RSM_CASE(3, 32)

@@ -1,8 +1,9 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
-All ``csrc/*.cu`` files are compiled by one ``nvcc`` call into one shared
-library with a plain C interface, which is loaded with ``ctypes``.  No
-PyTorch header is compiled, so the build takes seconds.  The library is
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain C
+interface, which is loaded with ``ctypes``.  No PyTorch header is compiled,
+so the build takes seconds.  The library is
 named by a hash of the sources and flags and kept in ``_build/`` inside the
 package (ignored by git); a source change builds a new one.  Nothing is
 built or loaded at import: the first kernel launch does it.
@@ -28,7 +29,8 @@ PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 # launches per kernel name; reset with LAUNCHES.clear()
 LAUNCHES: collections.Counter = collections.Counter()
@@ -43,6 +45,8 @@ _SIGNATURES = {
     "rsm_conv3x3": [_P] * 6 + [_I] * 11 + [ctypes.c_float, _I, _P],
     # x, w, scale, bias, out, dtype, n, d, h, w, cin, cout, act, device, stream
     "rsm_conv3d": [_P] * 5 + [_I] * 9 + [_P],
+    # x, g, work, out, dtype, n, d, h, w, cin, cout, kd, dil, device, stream
+    "rsm_dw_reduce": [_P] * 4 + [_I] * 10 + [_P],
 }
 
 
@@ -62,28 +66,47 @@ def _sources() -> list[pathlib.Path]:
 
 def library_path() -> pathlib.Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librsm_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _raise_nvcc(cmd, rc, out, err):
+    raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}\n{err}")
+
+
 def build() -> pathlib.Path:
-    """Compile ``csrc/*.cu`` into the library unless it is already built."""
+    """Compile ``csrc/*.cu`` (one nvcc per file, all in parallel) and link
+    the library, unless it is already built."""
     so = library_path()
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, so)
+    tmp = BUILD_DIR / f"{so.stem}.{os.getpid()}.tmp"
+    tmp.mkdir(parents=True, exist_ok=True)
+    objs, procs = [], []
+    try:
+        nvcc = _nvcc()
+        for src in sorted(CSRC.glob("*.cu")):
+            objs.append(tmp / f"{src.stem}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(objs[-1])]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        for cmd, proc in procs:
+            out, err = proc.communicate(timeout=900)
+            if proc.returncode:
+                _raise_nvcc(cmd, proc.returncode, out, err)
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp / so.name), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            _raise_nvcc(cmd, proc.returncode, proc.stdout, proc.stderr)
+        os.replace(tmp / so.name, so)
+    finally:
+        for _, proc in procs:  # no compiler outlives a failed build
+            proc.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
     return so
 
 
@@ -97,6 +120,9 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.rsm_error_string.argtypes = [ctypes.c_int]
     lib.rsm_error_string.restype = ctypes.c_char_p
+    # n, d, h, w, cin, cout, kd, dil -> floats of workspace, -1 if unsupported
+    lib.rsm_dw_workspace.argtypes = [_I] * 8
+    lib.rsm_dw_workspace.restype = ctypes.c_longlong
     return lib
 
 

@@ -27,7 +27,8 @@ from torch import nn
 from realtime_stereo_matcher_tpu_torch.kernels import _build
 
 # (C_in, C_out) pairs csrc/conv3x3.cu instantiates, by stride
-SUPPORTED_CHANNELS = {1: {(32, 32), (4, 32), (32, 1)}, 2: {(32, 32), (3, 32)}}
+SUPPORTED_CHANNELS = {1: {(32, 32), (4, 32), (32, 1), (32, 4), (1, 32)},
+                      2: {(32, 32), (3, 32)}}
 KERNEL_NAMES = {1: "fused_conv3x3", 2: "fused_conv3x3_s2"}
 _ACT_CODES = {"none": 0, "relu": 1}  # a float is leaky ReLU (code 2)
 
@@ -50,14 +51,16 @@ def _activate(y: torch.Tensor, act) -> torch.Tensor:
 
 def fused_conv3x3_plain(x, w, scale, bias, *, stride=1, dilation=1,
                         act="relu", residual=None):
-    """Plain PyTorch version: float32 ``F.conv2d`` and the same epilogue.
+    """Plain PyTorch version: float32 ``F.conv2d`` and the same epilogue
+    (float64 for float64 ``x``, so that gradients can be checked).
 
     x (N, H, W, C_in), w (3, 3, C_in, C_out) HWIO, scale/bias (C_out,) f32,
     residual (N, Ho, Wo, C_out) or None.  Returns (N, Ho, Wo, C_out) in
     x's dtype."""
-    y = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    y = F.conv2d(x.to(acc).permute(0, 3, 1, 2), w.to(acc).permute(3, 2, 0, 1),
                  stride=stride, padding=dilation, dilation=dilation)
-    y = _activate(y.permute(0, 2, 3, 1) * scale.float() + bias.float(), act)
+    y = _activate(y.permute(0, 2, 3, 1) * scale.to(acc) + bias.to(acc), act)
     y = y.to(x.dtype)
     if residual is not None:
         y = y + residual

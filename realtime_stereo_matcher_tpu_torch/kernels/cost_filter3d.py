@@ -22,18 +22,20 @@ from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
     conv_spec,
 )
 
-SUPPORTED_CHANNELS = {(32, 32), (32, 1)}
+SUPPORTED_CHANNELS = {(32, 32), (32, 1), (1, 32)}
 KERNEL_NAME = "fused_conv3d"
 
 
 def fused_conv3d_plain(x, w, scale, bias, *, relu=True):
-    """Plain PyTorch version: float32 ``F.conv3d`` and the same epilogue.
+    """Plain PyTorch version: float32 ``F.conv3d`` and the same epilogue
+    (float64 for float64 ``x``, so that gradients can be checked).
 
     x (B, D, H, W, C_in), w (3, 3, 3, C_in, C_out) DHWIO, scale/bias
     (C_out,) f32.  Returns (B, D, H, W, C_out) in x's dtype."""
-    y = F.conv3d(x.float().permute(0, 4, 1, 2, 3),
-                 w.float().permute(4, 3, 0, 1, 2), padding=1)
-    y = y.permute(0, 2, 3, 4, 1) * scale.float() + bias.float()
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    y = F.conv3d(x.to(acc).permute(0, 4, 1, 2, 3),
+                 w.to(acc).permute(4, 3, 0, 1, 2), padding=1)
+    y = y.permute(0, 2, 3, 4, 1) * scale.to(acc) + bias.to(acc)
     if relu:
         y = torch.relu(y)
     return y.to(x.dtype).contiguous()

@@ -54,9 +54,25 @@ def test_no_banned_import_in_source():
         assert not found, f"{path.relative_to(ROOT)} imports {sorted(found)}"
 
 
+# the training slice's modules, named so that a rename cannot drop one from
+# the blocked import below unnoticed
+TRAIN_MODULES = (
+    "realtime_stereo_matcher_tpu_torch.config",
+    "realtime_stereo_matcher_tpu_torch.data.synthetic",
+    "realtime_stereo_matcher_tpu_torch.kernels.train_conv",
+    "realtime_stereo_matcher_tpu_torch.kernels.train_conv3d",
+    "realtime_stereo_matcher_tpu_torch.models.fast_train",
+    "realtime_stereo_matcher_tpu_torch.train.init",
+    "realtime_stereo_matcher_tpu_torch.train.loss",
+    "realtime_stereo_matcher_tpu_torch.train.optim",
+    "realtime_stereo_matcher_tpu_torch.train.trainer",
+)
+
+
 def test_imports_with_jax_blocked():
     """Every port module and chip_smoke import with the banned names made
     unimportable, so no import reaches them, directly or transitively."""
+    assert set(TRAIN_MODULES) <= set(_module_names())
     code = (
         "import importlib, sys\n"
         f"banned = {BANNED!r}\n"
@@ -107,12 +123,14 @@ def test_kernel_sources_have_no_torch_headers_and_target_sm90a():
     from realtime_stereo_matcher_tpu_torch.kernels import _build
 
     sources = sorted((PORT / "csrc").glob("*.cu*"))
-    assert {p.name for p in sources} >= {"conv3x3.cu", "conv3d.cu"}
+    assert {p.name for p in sources} >= {"conv3x3.cu", "conv3d.cu",
+                                         "dw_reduce.cu"}
     for p in sources:
         text = p.read_text()
         assert "torch/extension.h" not in text and "ATen" not in text, p
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
-    assert "-shared" in _build.NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.LINK_FLAGS
+    assert "-shared" in _build.LINK_FLAGS
     # the library lands in a directory git ignores
     assert _build.library_path().parent == PORT / "_build"
     assert "realtime_stereo_matcher_tpu_torch/_build/" in (
