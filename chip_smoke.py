@@ -22,13 +22,22 @@ imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
    model at 1280x720, the bf16 kernel path (the inference main path) with
    launch counts, then 8 stereo pairs through
    ``realtime_stereo_matcher_tpu_torch.bench``.
-6. train: the reference training config (batch 4, 480 x 640 crops of seeded
+6. v3: the kernels of the v3 path (K2-4x4 and K1 3 -> 32, and K1's other
+   v3 epilogues) against their plain versions at every distinct shape of
+   the 720p v3 frame, float32 and bfloat16; K2-4x4 and the 3 -> 32 stem
+   timed beside their plain versions, one cuDNN call and the bound; v3 from
+   ``configure/stereo_net_config_v3.json`` with seeded weights: its float32
+   kernel path against the plain float32 model with the same banded warp at
+   1280x720, each refine level's largest flow against its warp band, the
+   bf16 kernel path (the v3 inference main path) with launch counts, then 8
+   pairs through ``bench.run_bench(model="v3")``.
+7. train: the reference training config (batch 4, 480 x 640 crops of seeded
    synthetic scenes) from ``create_train_state``; the first step's float32
    kernel-path loss, gradients and BatchNorm updates against the float32
    plain step, its bf16 gradients too, then ``train()`` on the kernel path
    in bf16 (the training main path) for 2 warm-up and 8 timed steps, with
    launch counts per step and step times by CUDA events.
-7. report: one ``{"kernels": [...]}`` line, one latency line, the
+8. report: one ``{"kernels": [...]}`` line, one latency line, the
    ``nvidia-smi`` name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -56,6 +65,8 @@ from realtime_stereo_matcher_tpu_torch.kernels import _build
 from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
     fused_conv3x3,
     fused_conv3x3_plain,
+    fused_conv4x4_s2,
+    fused_conv4x4_s2_plain,
     output_hw,
 )
 from realtime_stereo_matcher_tpu_torch.kernels.cost_filter3d import (
@@ -76,6 +87,9 @@ from realtime_stereo_matcher_tpu_torch.models.fast_train import (
     fast_train_forward,
     load_running_stats,
     running_stats,
+)
+from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
+    refine_max_shifts,
 )
 from realtime_stereo_matcher_tpu_torch.train.loss import build_loss_function
 from realtime_stereo_matcher_tpu_torch.train.trainer import (
@@ -100,6 +114,10 @@ TOL_DW_BF16 = (2e-2, 1e-2)
 # launches of one 720p frame on the inference main path
 LAUNCHES_PER_FRAME = {"fused_conv3x3": 56, "fused_conv3x3_s2": 6,
                       "fused_conv3d": 5}
+# launches of one 720p v3 frame: K1 12 per view in the U-Net and 15 per
+# RefineNet, K2-4x4 3 per view, K3 5
+LAUNCHES_PER_FRAME_V3 = {"fused_conv3x3": 69, "fused_conv4x4_s2": 6,
+                         "fused_conv3d": 5}
 # the training main path: reference config, batch 4 at 480 x 640
 TRAIN_B, TRAIN_HW = 4, (480, 640)
 WARMUP_STEPS, TIMED_STEPS = 2, 8
@@ -122,12 +140,14 @@ GRAD_RTOL_BF16, GRAD_BF16_FLOOR_SLACK = 5e-2, 3.0
 REPLACES = {
     "fused_conv3x3": "realtime_stereo_matcher_tpu/kernels/conv3x3.py:369",
     "fused_conv3x3_s2": "realtime_stereo_matcher_tpu/kernels/conv3x3.py:613",
+    "fused_conv4x4_s2": "realtime_stereo_matcher_tpu/kernels/conv3x3.py:700",
     "fused_conv3d": "realtime_stereo_matcher_tpu/kernels/cost_filter3d.py:213",
     "dw_reduce": "realtime_stereo_matcher_tpu/kernels/train_conv.py:141",
 }
 SOURCES = {
     "fused_conv3x3": "realtime_stereo_matcher_tpu_torch/csrc/conv3x3.cu",
     "fused_conv3x3_s2": "realtime_stereo_matcher_tpu_torch/csrc/conv3x3.cu",
+    "fused_conv4x4_s2": "realtime_stereo_matcher_tpu_torch/csrc/conv3x3.cu",
     "fused_conv3d": "realtime_stereo_matcher_tpu_torch/csrc/conv3d.cu",
     "dw_reduce": "realtime_stereo_matcher_tpu_torch/csrc/dw_reduce.cu",
 }
@@ -304,9 +324,20 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
+def add_bounds(rows: dict, peaks) -> dict:
+    """Each row's bound: the larger of its bytes over the memory rate and its
+    operations over the bf16 tensor-core rate, and which of the two it is."""
+    bw, flops_peak = peaks
+    for row in rows.values():
+        t_bytes = row["bytes"] / bw * 1e3
+        t_ops = row["flops"] / flops_peak * 1e3
+        row["bound_ms"] = max(t_bytes, t_ops)
+        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return rows
+
+
 def time_kernels(device, peaks) -> dict:
     """bf16 timings at each kernel's largest main-path shape."""
-    bw, flops_peak = peaks
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     rows = {}
     timed = [
@@ -345,12 +376,7 @@ def time_kernels(device, peaks) -> dict:
         plain_ms=time_ms(lambda: fused_conv3d_plain(*args, **kw)),
         library_ms=time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, padding=1)),
         bytes=_nbytes(*args, out), flops=2 * out.numel() * 27 * case["cin"])
-    for row in rows.values():
-        t_bytes = row["bytes"] / bw * 1e3
-        t_ops = row["flops"] / flops_peak * 1e3
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    return rows
+    return add_bounds(rows, peaks)
 
 
 # ---------------------------------------------------------------------------
@@ -456,7 +482,6 @@ def check_train_kernels(device) -> dict:
 def time_train_kernels(device, peaks) -> dict:
     """bf16 timings of K4 at its largest launch (2D, and the 3D form), and
     of the K1 / K3 pairs the backward adds, at the training shapes."""
-    bw, flops_peak = peaks
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     rows = {}
     for key, case in (("dw_reduce", dict(hw=TRAIN_HW, cin=32, cout=32, dil=1)),
@@ -499,12 +524,7 @@ def time_train_kernels(device, peaks) -> dict:
             library_ms=time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1)),
             bytes=_nbytes(*args, out), flops=2 * out.numel() * 9 * cin)
     rows.update(time_autograd(device, gen))
-    for row in rows.values():
-        t_bytes = row["bytes"] / bw * 1e3
-        t_ops = row["flops"] / flops_peak * 1e3
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-    return rows
+    return add_bounds(rows, peaks)
 
 
 def time_autograd(device, gen) -> dict:
@@ -609,9 +629,10 @@ def check_autograd(device) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def seeded_model(device):
-    """v1 from the repo config, weights and BatchNorm stats from ``SEED``."""
-    config = json.loads(bench.CONFIG.read_text())["model"]
+def seeded_model(device, model: str = "v1"):
+    """``model`` (v1 or v3) from its repo config, weights and BatchNorm
+    stats from ``SEED``."""
+    config = bench.model_config(model)
     gen = torch.Generator().manual_seed(SEED)
     model = build_model(config, device=device, generator=gen)
     with torch.no_grad():
@@ -632,31 +653,168 @@ def check_model(device, hw=HW) -> dict:
                    for _ in range(2))
     with torch.no_grad():
         plain = model(left, right)
+    return check_kernel_path(model, left, right, plain, LAUNCHES_PER_FRAME)
+
+
+def check_kernel_path(model, left, right, plain, expected, what="") -> dict:
+    """The float32 kernel path against the plain float32 outputs ``plain``
+    (rtol 1e-3, atol 5e-2), then the bf16 kernel path (the main path),
+    its launches counted from 0 and held to ``expected``, its output
+    finite negative flow within 1 px median of the plain one."""
     fast32 = make_fast_forward(model, dtype=torch.float32)(left, right)
-    f32_err = []
-    for i, (g, w) in enumerate(zip(fast32, plain)):
-        f32_err.append(_compare(g, w, (5e-2, 1e-3), f"f32 kernel path head {i}"))
-    log(f"  f32 kernel path vs plain f32: max abs err per head {f32_err}")
+    f32_err = [_compare(g, w, (5e-2, 1e-3), f"{what}f32 kernel path head {i}")
+               for i, (g, w) in enumerate(zip(fast32, plain))]
+    log(f"  {what}f32 kernel path vs plain f32: max abs err per head {f32_err}")
 
     fast_bf16 = make_fast_forward(model)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     _build.LAUNCHES.clear()
     out = fast_bf16(left, right)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     final = out[-1]
-    if final.shape != (1, *hw, 1) or not bool(torch.isfinite(final).all()):
-        raise AssertionError(f"bf16 output: shape {tuple(final.shape)}")
+    if final.shape != left.shape[:3] + (1,) or not bool(
+            torch.isfinite(final).all()):
+        raise AssertionError(f"{what}bf16 output: shape {tuple(final.shape)}")
     if float(final.max()) > 0:
-        raise AssertionError("bf16 output is not negative flow")
+        raise AssertionError(f"{what}bf16 output is not negative flow")
     median = float((final - plain[-1]).abs().median())
-    log(f"  bf16 kernel path vs plain f32: median |d| {median:.4f} px")
+    log(f"  {what}bf16 kernel path vs plain f32: median |d| {median:.4f} px")
     if not median < 1.0:
-        raise AssertionError(f"bf16 median error {median} px >= 1 px")
+        raise AssertionError(f"{what}bf16 median error {median} px >= 1 px")
+    if launches != expected:
+        raise AssertionError(f"launches of one {what}frame {launches}, "
+                             f"expected {expected}")
     return dict(launches=launches, f32_max_abs_err=f32_err,
                 bf16_median_err_px=median)
+
+
+def run_checked_bench(model: str, per_frame: dict) -> dict:
+    """8 pairs through ``bench.run_bench``, its launches held to
+    ``per_frame`` x the frames it ran (warm-up included)."""
+    _build.LAUNCHES.clear()
+    record = bench.run_bench(pairs=8, seed=SEED, model=model)
+    frames = record["pairs"] + record["warmup"]
+    expected = {k: v * frames for k, v in per_frame.items()}
+    if dict(_build.LAUNCHES) != expected:
+        raise AssertionError(f"{model} bench launches "
+                             f"{dict(_build.LAUNCHES)}, expected {expected}")
+    log(json.dumps(record))
+    return record
+
+
+# ---------------------------------------------------------------------------
+# v3: K2-4x4, K1's v3 cases and the v3 model
+# ---------------------------------------------------------------------------
+
+
+def v3_conv3x3_cases(h: int = HW[0], w: int = HW[1]) -> list[dict]:
+    """K1 cases the v3 frame adds to v1's: the 3 -> 32 stem, the U-Net's
+    leaky convs (1/8 to full) and the refine entry's two linear halves (the
+    second with the first as its residual) at the refine levels."""
+    levels = [(h >> k, w >> k) for k in (0, 1, 2, 3)]
+    cases = [dict(hw=levels[0], cin=3, cout=32, stride=1, dil=1, act=0.2,
+                  res=False)]
+    cases += [dict(hw=hw, cin=32, cout=32, stride=1, dil=1, act=0.2,
+                   res=False) for hw in levels]
+    for hw in levels[:3]:
+        for res in (False, True):
+            cases.append(dict(hw=hw, cin=32, cout=32, stride=1, dil=1,
+                              act="none", res=res))
+    return cases
+
+
+def conv4x4_cases(h: int = HW[0], w: int = HW[1]) -> list[tuple]:
+    """Input sizes of the U-Net's 4x4 stride-2 convs: full, 1/2, 1/4."""
+    return [(h >> k, w >> k) for k in (0, 1, 2)]
+
+
+def conv4x4_operands(hw, dtype, device, gen):
+    return _operands((1, *hw, 32), (4, 4, 32, 32), 32, dtype, device, gen)
+
+
+def check_v3_kernels(device) -> dict:
+    """K1's v3 cases and K2-4x4 against their plain versions."""
+    worst = check_kernels(device, v3_conv3x3_cases(), [])
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    for dtype, tol, tag in ((torch.float32, TOL_F32, "f32"),
+                            (torch.bfloat16, TOL_BF16, "bf16")):
+        for hw in conv4x4_cases():
+            args = conv4x4_operands(hw, dtype, device, gen)
+            got = fused_conv4x4_s2(*args, act=0.2)
+            ref = fused_conv4x4_s2_plain(*(a.float() for a in args), act=0.2)
+            key = ("fused_conv4x4_s2", tag)
+            worst[key] = max(worst.get(key, 0.0), _compare(
+                got, ref, tol, f"fused_conv4x4_s2 {hw} {dtype}"))
+        log(f"  {len(conv4x4_cases())} K2-4x4 cases within tolerance in "
+            f"{dtype}")
+    return worst
+
+
+def time_v3_kernels(device, peaks) -> dict:
+    """bf16 timings of K2-4x4 at its largest launch (720x1280 -> 360x640)
+    and of the v3 stem (K1 3 -> 32 at 720x1280).  cuDNN's yardstick for the
+    4x4 conv is the same conv with torch padding 1, which is TF-SAME on
+    even sizes."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    rows = {}
+    args = conv4x4_operands(HW, torch.bfloat16, device, gen)
+    x, w = args[0], args[1]
+    out = fused_conv4x4_s2(*args, act=0.2)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    x_nchw = x.permute(0, 3, 1, 2)
+    rows["fused_conv4x4_s2"] = dict(
+        shape=f"{HW[0]}x{HW[1]} -> {out.shape[1]}x{out.shape[2]} 32->32",
+        ms=time_ms(lambda: fused_conv4x4_s2(*args, act=0.2)),
+        plain_ms=time_ms(lambda: fused_conv4x4_s2_plain(*args, act=0.2)),
+        library_ms=time_ms(lambda: F.conv2d(x_nchw, w_oihw, stride=2,
+                                            padding=1)),
+        bytes=_nbytes(*args, out), flops=2 * out.numel() * 16 * 32)
+    args = _operands((1, *HW, 3), (3, 3, 3, 32), 32, torch.bfloat16, device,
+                     gen)
+    out = fused_conv3x3(*args, act=0.2)
+    w_oihw = args[1].permute(3, 2, 0, 1).contiguous()
+    x_nchw = args[0].permute(0, 3, 1, 2)
+    rows["fused_conv3x3 3->32"] = dict(
+        shape=f"{HW[0]}x{HW[1]} 3->32 leaky",
+        ms=time_ms(lambda: fused_conv3x3(*args, act=0.2)),
+        plain_ms=time_ms(lambda: fused_conv3x3_plain(*args, act=0.2)),
+        library_ms=time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1)),
+        bytes=_nbytes(*args, out), flops=2 * out.numel() * 9 * 3)
+    return add_bounds(rows, peaks)
+
+
+def check_model_v3(device, hw=HW) -> dict:
+    """The v3 kernel path against the plain v3 with the same banded warp;
+    the bf16 frame is the v3 main path whose launches are counted."""
+    model = seeded_model(device, "v3")
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    left, right = (torch.rand((1, *hw, 3), generator=gen, device=device) * 255
+                   for _ in range(2))
+    shifts = refine_max_shifts(model.max_disp, model.down_factor)
+    flows = []  # the largest flow each refine level warps by: 2 x its input
+
+    def note_flow(_, args):
+        flows.append(2.0 * float(args[0].abs().max()))
+
+    hooks = [r.register_forward_pre_hook(note_flow)
+             for r in model.refine_layers]
+    with torch.no_grad():
+        plain = model(left, right, banded_warp=True)
+    for h in hooks:
+        h.remove()
+    with torch.no_grad():
+        unbanded = model(left, right)
+    band_effect = [float((a - b).abs().max()) for a, b in zip(plain, unbanded)]
+    levels = [dict(level=i, max_abs_flow=f, max_shift=m, in_band=f <= m)
+              for i, (f, m) in enumerate(zip(flows, shifts))]
+    log(f"  refine levels, largest |flow| against the warp band: "
+        f"{json.dumps(levels)}; plain banded vs unbanded warp, max abs "
+        f"difference per head {band_effect}")
+
+    result = check_kernel_path(model, left, right, plain,
+                               LAUNCHES_PER_FRAME_V3, "v3 ")
+    return dict(result, refine_levels=levels, band_effect=band_effect)
 
 
 # ---------------------------------------------------------------------------
@@ -851,41 +1009,44 @@ def main() -> int:
         grad_worst = check_autograd(device)
     with Phase("model"):
         model_result = check_model(device)
-        if model_result["launches"] != LAUNCHES_PER_FRAME:
-            raise AssertionError(f"launches of one frame "
-                                 f"{model_result['launches']}, expected "
-                                 f"{LAUNCHES_PER_FRAME}")
     with Phase("bench"):
-        _build.LAUNCHES.clear()
-        record = bench.run_bench(pairs=8, seed=SEED)
-        frames = record["pairs"] + record["warmup"]
-        expected = {k: v * frames for k, v in LAUNCHES_PER_FRAME.items()}
-        if dict(_build.LAUNCHES) != expected:
-            raise AssertionError(f"bench launches {dict(_build.LAUNCHES)}, "
-                                 f"expected {expected}")
-        log(json.dumps(record))
+        record = run_checked_bench("v1", LAUNCHES_PER_FRAME)
+    with Phase("v3 kernels"):
+        v3_worst = check_v3_kernels(device)
+        v3_rows = time_v3_kernels(device, peaks)
+        log(json.dumps({"v3_kernel_times": v3_rows}))
+    with Phase("v3 model"):
+        v3_result = check_model_v3(device)
+    with Phase("v3 bench"):
+        v3_record = run_checked_bench("v3", LAUNCHES_PER_FRAME_V3)
     with Phase("train"):
         train_result = check_train(device)
 
     rows["dw_reduce"] = train_rows["dw_reduce"]
+    rows["fused_conv4x4_s2"] = v3_rows["fused_conv4x4_s2"]
     for key in ("f32", "bf16"):  # the largest error of each kernel
         for name in ("fused_conv3x3", "fused_conv3d"):
             worst[(name, key)] = max(worst[(name, key)],
                                      train_worst[(name, key)])
+        worst[("fused_conv3x3", key)] = max(worst[("fused_conv3x3", key)],
+                                            v3_worst[("fused_conv3x3", key)])
+        worst[("fused_conv4x4_s2", key)] = v3_worst[("fused_conv4x4_s2", key)]
         worst[("dw_reduce", key)] = train_worst[("dw_reduce", key)]
     dw_over_scale = {key: train_worst[("dw_reduce", key, "over scale")]
                      for key in ("f32", "bf16")}
     kernels = []
     for name, row in rows.items():
         by_path = {"infer_frame": model_result["launches"].get(name, 0),
+                   "infer_frame_v3": v3_result["launches"].get(name, 0),
                    "train_run": train_result["launches"].get(name, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             # the count of the main path the kernel carries: the training
             # run (train() over all its steps) where it runs there, else
-            # the inference frame
-            "launches": by_path["train_run"] or by_path["infer_frame"],
+            # the v1 inference frame, else the v3 one
+            "launches": (by_path["train_run"] or by_path["infer_frame"]
+                         or by_path["infer_frame_v3"]),
             "launches_by_path": by_path,
             "launches_per_train_step":
                 train_result["launches_per_step"].get(name, 0),
@@ -902,6 +1063,9 @@ def main() -> int:
     log(json.dumps({"frame_latency_ms": record["latency_ms"],
                     "fps": record["value"],
                     "bf16_median_err_px": model_result["bf16_median_err_px"],
+                    "v3": {"frame_latency_ms": v3_record["latency_ms"],
+                           "fps": v3_record["value"],
+                           "kernel_times": v3_rows, **v3_result},
                     "train_step_ms": {"median": train_result["step_ms_median"],
                                       "min": train_result["step_ms_min"]},
                     "train": train_result,

@@ -1,12 +1,14 @@
-"""Flagship benchmark of the port: MobileStereoNet v1 at 1280x720 on one CUDA card.
+"""Flagship benchmark of the port: MobileStereoNet at 1280x720 on one CUDA card.
 
-    python -m realtime_stereo_matcher_tpu_torch.bench [--pairs 8] [--seed 0]
+    python -m realtime_stereo_matcher_tpu_torch.bench [--model v1|v3] [--pairs 8] [--seed 0]
 
-Builds v1 from ``configure/stereo_net_config.json`` with weights drawn from
+Builds the model (v1 from ``configure/stereo_net_config.json``, the default;
+v3 from ``configure/stereo_net_config_v3.json``) with weights drawn from
 ``--seed``, answers ``--pairs`` random 720p stereo pairs (batch 1, eval mode)
 through the bf16 kernel path, and prints one JSON line:
 
-    {"metric": "mobile_stereo_net_720p_fps", "value": <1000 / median ms>,
+    {"metric": "mobile_stereo_net_720p_fps" (v3: "mobile_stereo_net_v3_720p_fps"),
+     "value": <1000 / median ms>,
      "unit": "frames/s", "latency_ms": {"min": ..., "median": ...},
      "device": <card name>, "path": "kernel", "degraded": false, ...}
 
@@ -31,23 +33,34 @@ from realtime_stereo_matcher_tpu_torch import resolve_device
 from realtime_stereo_matcher_tpu_torch.models import build_model
 from realtime_stereo_matcher_tpu_torch.models.fast_infer import make_fast_forward
 
-CONFIG = (pathlib.Path(__file__).resolve().parent.parent / "configure"
-          / "stereo_net_config.json")
+CONFIGURE = pathlib.Path(__file__).resolve().parent.parent / "configure"
+# per model: (repo config, metric name)
+MODELS = {"v1": (CONFIGURE / "stereo_net_config.json",
+                 "mobile_stereo_net_720p_fps"),
+          "v3": (CONFIGURE / "stereo_net_config_v3.json",
+                 "mobile_stereo_net_v3_720p_fps")}
+CONFIG = MODELS["v1"][0]
 HW = (720, 1280)
 
 
+def model_config(model: str = "v1") -> dict:
+    """The ``model`` section of the repo config of ``model`` (v1 or v3)."""
+    return json.loads(MODELS[model][0].read_text())["model"]
+
+
 def run_bench(pairs: int = 8, seed: int = 0, *, warmup: int = 2,
-              device="cuda") -> dict:
-    """Answer ``pairs`` random 720p pairs on the kernel path; return the record.
+              device="cuda", model: str = "v1") -> dict:
+    """Answer ``pairs`` random 720p pairs on ``model``'s kernel path; return
+    the record.
 
     Raises if the outputs are not finite negative disparities of the input's
     size."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("the benchmark times CUDA kernels; device must be cuda")
-    model = build_model(json.loads(CONFIG.read_text())["model"], device=dev,
-                        generator=torch.Generator().manual_seed(seed))
-    forward = make_fast_forward(model, dtype=torch.bfloat16)
+    net = build_model(model_config(model), device=dev,
+                      generator=torch.Generator().manual_seed(seed))
+    forward = make_fast_forward(net, dtype=torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(seed)
     frames = [tuple(torch.rand((1, *HW, 3), generator=gen, device=dev) * 255
                     for _ in range(2)) for _ in range(pairs)]
@@ -73,7 +86,7 @@ def run_bench(pairs: int = 8, seed: int = 0, *, warmup: int = 2,
             raise RuntimeError("disparity must be negative flow (<= 0)")
     median = statistics.median(ms)
     return {
-        "metric": "mobile_stereo_net_720p_fps",
+        "metric": MODELS[model][1],
         "value": 1000.0 / median,
         "unit": "frames/s",
         "latency_ms": {"min": min(ms), "median": median},
@@ -87,6 +100,7 @@ def run_bench(pairs: int = 8, seed: int = 0, *, warmup: int = 2,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="v1")
     ap.add_argument("--pairs", type=int, default=8)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -94,7 +108,7 @@ def main(argv=None) -> int:
         print("bench: CUDA is not available; the benchmark needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    print(json.dumps(run_bench(args.pairs, args.seed)))
+    print(json.dumps(run_bench(args.pairs, args.seed, model=args.model)))
     return 0
 
 

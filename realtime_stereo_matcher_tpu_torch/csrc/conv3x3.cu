@@ -1,5 +1,6 @@
 // Fused 3x3 convolution on NHWC tensors: stride 1 with dilation 1/2/4/8, and
-// stride 2 (torch padding 1), each with the epilogue of conv_common.cuh.
+// stride 2 (torch padding 1); and the fused 4x4 stride-2 TF-SAME convolution;
+// each with the epilogue of conv_common.cuh.
 //
 // Replaces two Pallas TPU kernels of the JAX package:
 //   K1  realtime_stereo_matcher_tpu/kernels/conv3x3.py  fused_conv3x3_flat
@@ -7,11 +8,14 @@
 //       with BN-fold, ReLU / leaky / none, and a residual after the
 //       activation.  Training (kernels/train_conv.py, the port of K5
 //       flat_conv3x3) runs it for the forward and for dx, which adds the
-//       32 -> 4 and 1 -> 32 cases.
+//       32 -> 4 and 1 -> 32 cases; the v3 U-Net's stem adds 3 -> 32.
 //   K2  realtime_stereo_matcher_tpu/kernels/conv3x3.py  fused_conv3x3_s2_flat
 //       (body _build_s2_kernel, launcher _conv_s2_call): the stride-2 3x3
-//       conv that halves H and W.  The 4x4 TF-SAME form (v3 U-Net) is not
-//       ported yet.
+//       conv that halves H and W.
+//   K2-4x4  realtime_stereo_matcher_tpu/kernels/conv3x3.py
+//       fused_conv4x4_s2_flat (the same launcher with the 4x4 taps): the v3
+//       U-Net's 4x4 stride-2 downsampler with TF-SAME padding (output pixel
+//       X reads input 2X-1 .. 2X+2), bias and leaky ReLU 0.2, 32 -> 32.
 // The TPU kernels fold 4 pixels x 32 channels into 128 lanes to feed its
 // matrix unit; none of that is carried over.  This computes the same
 // function on plain NHWC tensors.
@@ -23,7 +27,9 @@
 // This first kernel runs its FMAs on the CUDA cores in float32 (67 TFLOP/s
 // peak), so it is bound by those operations instead (>= 0.25 ms for that
 // launch).  A wgmma / TMA redesign that reaches the memory bound is later
-// work.
+// work.  The same holds for the 4x4 stride-2 conv: at 720x1280 -> 360x640,
+// 32 -> 32 in bf16 it does 7.55 GFLOP on 73.7 MB, memory-bound on tensor
+// cores (22 us), FMA-bound here (>= 0.11 ms at the CUDA cores' peak).
 //
 // C interface (bound with ctypes by kernels/_build.py): pointers and the
 // stream are void*, the rest int; the return value is the cudaError_t of the
@@ -51,6 +57,7 @@ cudaError_t dispatch(const void* x, const void* w, const void* scale,
     RSM_CASE(32, 1)
     RSM_CASE(32, 4)  // dx of the 4 -> 32 refine entry conv (training)
     RSM_CASE(1, 32)  // dx of the 32 -> 1 refine head (training)
+    RSM_CASE(3, 32)  // the v3 U-Net's stem
   } else {
     RSM_CASE(32, 32)
     RSM_CASE(3, 32)
@@ -88,6 +95,26 @@ int rsm_conv3x3(const void* x, const void* w, const void* scale,
                : dispatch<float, 2>(x, w, scale, bias, res, out, n, h, wd,
                                     cin, cout, ho, wo, dil, act, alpha, st);
   }
+  return cudaErrorInvalidValue;
+}
+
+// The 4x4 stride-2 TF-SAME conv: pad_lo = 1, Ho = ceil(H / 2), 32 -> 32.
+int rsm_conv4x4_s2(const void* x, const void* w, const void* scale,
+                   const void* bias, void* out, int dtype, int n, int h,
+                   int wd, int cin, int cout, int ho, int wo, int act,
+                   float alpha, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cin != 32 || cout != 32) return cudaErrorInvalidValue;
+  if (dtype == rsm::kBFloat16)
+    return rsm::launch_conv<__nv_bfloat16, 32, 32, 2, 1, 4>(
+        x, w, scale, bias, nullptr, out, n, 1, h, wd, ho, wo, 1, 1, act,
+        alpha, st);
+  if (dtype == rsm::kFloat32)
+    return rsm::launch_conv<float, 32, 32, 2, 1, 4>(
+        x, w, scale, bias, nullptr, out, n, 1, h, wd, ho, wo, 1, 1, act,
+        alpha, st);
   return cudaErrorInvalidValue;
 }
 

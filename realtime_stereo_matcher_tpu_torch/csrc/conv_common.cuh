@@ -1,9 +1,11 @@
 // Direct convolution with a fused epilogue, shared by the 3x3 kernels
-// (conv3x3.cu: stride 1 and stride 2) and the 3x3x3 kernel (conv3d.cu).
+// (conv3x3.cu: stride 1 and stride 2), the 4x4 stride-2 TF-SAME kernel
+// (conv3x3.cu) and the 3x3x3 kernel (conv3d.cu).
 //
 // Layouts are channels-last and contiguous:
 //   x   (N, D, H, W, CI)        T    (D = 1 for a 2D conv)
-//   w   (KD, 3, 3, CI, CO)      T    (KD = 1 for a 2D conv; HWIO / DHWIO)
+//   w   (KD, K, K, CI, CO)      T    (KD = 1 for a 2D conv; HWIO / DHWIO;
+//                                     K = 3, or 4 for the 4x4 conv)
 //   out (N, D, Ho, Wo, CO)      T
 //   res (N, D, Ho, Wo, CO)      T    optional residual
 // T is float or __nv_bfloat16; products and sums are float32.
@@ -15,10 +17,13 @@
 // Design: one thread owns kPix output pixels (kThreads apart in the
 // flattened Ho*Wo plane) and all CO output channels, so each weight read from
 // shared memory feeds kPix * 4 FMAs.  The weights of one depth tap
-// (9 * CI * CO floats, 36 KB at 32 -> 32) are staged in static shared memory;
-// the 3x3x3 conv restages them for each of its 3 depth taps, which keeps
-// every launch under the 48 KB static limit.  Input pixels are read from
-// global memory as 16-byte vectors; the 9-fold tap reuse is served by L1/L2.
+// (9 * CI * CO floats, 36 KB at 3x3, 32 -> 32) are staged in static shared
+// memory; the 3x3x3 conv restages them for each of its 3 depth taps, and the
+// 4x4 conv, whose 16 taps (64 KB at 32 -> 32) do not fit, stages one kernel
+// row (4 taps, 16 KB) at a time, which keeps every launch under the 48 KB
+// static limit; the products are summed in the same order either way.
+// Input pixels are read from global memory as 16-byte vectors; the reuse of
+// a pixel by neighbouring taps is served by L1/L2.
 // The arithmetic runs on the CUDA cores in float32 (see the notes in
 // conv3x3.cu and conv3d.cu for what bounds each kernel).
 #pragma once
@@ -93,19 +98,23 @@ __device__ __forceinline__ void store_vec(T* p, const float* v) {
 }
 
 // grid: x = ceil(Ho * Wo / kBlockPix), y = N * D planes.
-// Stride-1 convs pass pad = dil (SAME); the stride-2 conv passes
-// pad = dil = 1 (torch padding=1).
-template <typename T, int CI, int CO, int S, int KD>
+// Output pixel X reads input S * X - pad + k * dil, k < K (zero outside).
+// Stride-1 convs pass pad = dil (SAME); the 3x3 stride-2 conv passes
+// pad = dil = 1 (torch padding=1); the 4x4 stride-2 conv passes pad = 1 and
+// takes Ho = ceil(H / 2) (TF-SAME: the far pad is whatever lies past H).
+template <typename T, int CI, int CO, int S, int KD, int K = 3>
 __global__ void __launch_bounds__(kThreads)
 conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
             const float* __restrict__ scale, const float* __restrict__ bias,
             const T* __restrict__ res, T* __restrict__ out,
             int D, int H, int W, int Ho, int Wo, int dil, int pad, int act,
             float alpha) {
-  constexpr int kTap = 9 * CI * CO;       // weights of one depth tap
+  constexpr int kRow = K * CI * CO;       // weights of one kernel row
+  // kernel rows staged at once: all K where they fit in 40 KB, else one
+  constexpr int kRows = (K * kRow * 4 <= 40 * 1024) ? K : 1;
   constexpr int CH = (CI % 8 == 0) ? 8 : CI;   // input channels per load
   constexpr int CHO = (CO % 8 == 0) ? 8 : CO;  // output channels per store
-  __shared__ __align__(16) float w_s[kTap];
+  __shared__ __align__(16) float w_s[kRows * kRow];
 
   const int plane = blockIdx.y;  // n * D + dz
   const int dz = plane % D;
@@ -130,57 +139,60 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
   for (int kd = 0; kd < KD; ++kd) {
     const int iz = dz + kd - KD / 2;
     if (iz < 0 || iz >= D) continue;  // the same for the whole block
-    __syncthreads();                  // the previous tap's weights are used up
-    const T* wk = w + (size_t)kd * kTap;
-    for (int i = threadIdx.x; i < kTap; i += kThreads) w_s[i] = to_f(wk[i]);
-    __syncthreads();
-
     const T* xplane = x + (size_t)(plane + kd - KD / 2) * H * W * CI;
-    for (int ky = 0; ky < 3; ++ky) {
-      for (int kx = 0; kx < 3; ++kx) {
-        const float* wt = w_s + (ky * 3 + kx) * CI * CO;
-        const T* px[kPix];
-        bool ok[kPix];
-#pragma unroll
-        for (int p = 0; p < kPix; ++p) {
-          const int iy = oy[p] * S - pad + ky * dil;
-          const int ix = ox[p] * S - pad + kx * dil;
-          ok[p] = live[p] && iy >= 0 && iy < H && ix >= 0 && ix < W;
-          px[p] = xplane + ((size_t)(ok[p] ? iy : 0) * W + (ok[p] ? ix : 0)) * CI;
-        }
-        for (int c0 = 0; c0 < CI; c0 += CH) {
-          float xv[kPix][CH];
+    for (int r0 = 0; r0 < K; r0 += kRows) {
+      __syncthreads();                // the previous rows' weights are used up
+      const T* wk = w + ((size_t)kd * K + r0) * kRow;
+      for (int i = threadIdx.x; i < kRows * kRow; i += kThreads)
+        w_s[i] = to_f(wk[i]);
+      __syncthreads();
+
+      for (int ky = r0; ky < r0 + kRows; ++ky) {
+        for (int kx = 0; kx < K; ++kx) {
+          const float* wt = w_s + ((ky - r0) * K + kx) * CI * CO;
+          const T* px[kPix];
+          bool ok[kPix];
 #pragma unroll
           for (int p = 0; p < kPix; ++p) {
-            if (ok[p]) {
-              load_vec<CH>(px[p] + c0, xv[p]);
-            } else {
-#pragma unroll
-              for (int j = 0; j < CH; ++j) xv[p][j] = 0.f;
-            }
+            const int iy = oy[p] * S - pad + ky * dil;
+            const int ix = ox[p] * S - pad + kx * dil;
+            ok[p] = live[p] && iy >= 0 && iy < H && ix >= 0 && ix < W;
+            px[p] = xplane + ((size_t)(ok[p] ? iy : 0) * W + (ok[p] ? ix : 0)) * CI;
           }
+          for (int c0 = 0; c0 < CI; c0 += CH) {
+            float xv[kPix][CH];
 #pragma unroll
-          for (int j = 0; j < CH; ++j) {
-            const float* wr = wt + (c0 + j) * CO;
-            if constexpr (CO % 4 == 0) {
+            for (int p = 0; p < kPix; ++p) {
+              if (ok[p]) {
+                load_vec<CH>(px[p] + c0, xv[p]);
+              } else {
 #pragma unroll
-              for (int c = 0; c < CO; c += 4) {
-                const float4 wv = *reinterpret_cast<const float4*>(wr + c);
-#pragma unroll
-                for (int p = 0; p < kPix; ++p) {
-                  acc[p][c] = fmaf(xv[p][j], wv.x, acc[p][c]);
-                  acc[p][c + 1] = fmaf(xv[p][j], wv.y, acc[p][c + 1]);
-                  acc[p][c + 2] = fmaf(xv[p][j], wv.z, acc[p][c + 2]);
-                  acc[p][c + 3] = fmaf(xv[p][j], wv.w, acc[p][c + 3]);
-                }
+                for (int j = 0; j < CH; ++j) xv[p][j] = 0.f;
               }
-            } else {
+            }
 #pragma unroll
-              for (int c = 0; c < CO; ++c) {
-                const float wv = wr[c];
+            for (int j = 0; j < CH; ++j) {
+              const float* wr = wt + (c0 + j) * CO;
+              if constexpr (CO % 4 == 0) {
 #pragma unroll
-                for (int p = 0; p < kPix; ++p)
-                  acc[p][c] = fmaf(xv[p][j], wv, acc[p][c]);
+                for (int c = 0; c < CO; c += 4) {
+                  const float4 wv = *reinterpret_cast<const float4*>(wr + c);
+#pragma unroll
+                  for (int p = 0; p < kPix; ++p) {
+                    acc[p][c] = fmaf(xv[p][j], wv.x, acc[p][c]);
+                    acc[p][c + 1] = fmaf(xv[p][j], wv.y, acc[p][c + 1]);
+                    acc[p][c + 2] = fmaf(xv[p][j], wv.z, acc[p][c + 2]);
+                    acc[p][c + 3] = fmaf(xv[p][j], wv.w, acc[p][c + 3]);
+                  }
+                }
+              } else {
+#pragma unroll
+                for (int c = 0; c < CO; ++c) {
+                  const float wv = wr[c];
+#pragma unroll
+                  for (int p = 0; p < kPix; ++p)
+                    acc[p][c] = fmaf(xv[p][j], wv, acc[p][c]);
+                }
               }
             }
           }
@@ -213,13 +225,13 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-template <typename T, int CI, int CO, int S, int KD>
+template <typename T, int CI, int CO, int S, int KD, int K = 3>
 cudaError_t launch_conv(const void* x, const void* w, const void* scale,
                         const void* bias, const void* res, void* out, int n,
                         int d, int h, int wd, int ho, int wo, int dil, int pad,
                         int act, float alpha, cudaStream_t stream) {
   const dim3 grid((ho * wo + kBlockPix - 1) / kBlockPix, n * d);
-  conv_kernel<T, CI, CO, S, KD><<<grid, kThreads, 0, stream>>>(
+  conv_kernel<T, CI, CO, S, KD, K><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(bias),
       static_cast<const T*>(res), static_cast<T*>(out), d, h, wd, ho, wo,

@@ -9,9 +9,11 @@
   so the disparity is exact by construction;
 * columns where ``x - d`` falls outside the right view are invalid.
 
-Scene ``i`` of a seed is always the same.  The JAX package resizes and
-remaps with cv2 where it has it; the port keeps its numpy path only (the
-card's machine has no cv2).  :class:`SyntheticBatches` serves fixed-shape
+Scene ``i`` of a seed is always the same, and the same as the JAX
+package's scene ``i`` when that package has cv2: the noise resize is cv2's
+``INTER_LINEAR`` geometry (half-pixel centres, edges clamped) and the remap
+is exact float bilinear, as cv2's is on float32 maps, both written in numpy
+here (the card's machine has no cv2).  :class:`SyntheticBatches` serves fixed-shape
 training batches in the repo's sample contract: flow = -disparity, NHWC
 float32.
 """
@@ -32,6 +34,20 @@ def _grids(h, w):
     return yy, xx
 
 
+def _linear_taps(n_in: int, n_out: int):
+    """cv2 ``INTER_LINEAR`` taps along one axis: centres at
+    ``(i + 0.5) * n_in / n_out - 0.5``; a centre below 0 reads index 0 with
+    weight 0 and one at or past ``n_in - 1`` reads index ``n_in - 1`` with
+    weight 0.  Returns (i0, i1, f): output = in[i0] * (1 - f) + in[i1] * f."""
+    c = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    i0 = np.floor(c).astype(np.int64)
+    f = (c - i0).astype(np.float32)
+    low, high = c < 0, i0 >= n_in - 1
+    i0 = np.where(low, 0, np.where(high, n_in - 1, i0))
+    f[low | high] = 0.0
+    return i0, np.minimum(i0 + 1, n_in - 1), f
+
+
 def _value_noise(rng, h, w, octaves=((8, 1.0), (24, 0.6), (64, 0.35)),
                  channels=3):
     """Sum of bilinearly-upsampled random grids, normalized to [0, 255]."""
@@ -39,16 +55,11 @@ def _value_noise(rng, h, w, octaves=((8, 1.0), (24, 0.6), (64, 0.35)),
     for cells, amp in octaves:
         gh, gw = max(2, int(cells * h / max(h, w))), max(2, cells)
         grid = rng.standard_normal((gh, gw, channels)).astype(np.float32)
-        ys = np.linspace(0, gh - 1, h, dtype=np.float32)
-        xs = np.linspace(0, gw - 1, w, dtype=np.float32)
-        y0 = np.clip(ys.astype(np.int32), 0, gh - 2)
-        x0 = np.clip(xs.astype(np.int32), 0, gw - 2)
-        fy = (ys - y0)[:, None, None]
-        fx = (xs - x0)[None, :, None]
-        g = (grid[y0][:, x0] * (1 - fy) * (1 - fx)
-             + grid[y0][:, x0 + 1] * (1 - fy) * fx
-             + grid[y0 + 1][:, x0] * fy * (1 - fx)
-             + grid[y0 + 1][:, x0 + 1] * fy * fx)
+        y0, y1, fy = _linear_taps(gh, h)
+        x0, x1, fx = _linear_taps(gw, w)
+        fy, fx = fy[:, None, None], fx[None, :, None]
+        g = ((grid[y0][:, x0] * (1 - fx) + grid[y0][:, x1] * fx) * (1 - fy)
+             + (grid[y1][:, x0] * (1 - fx) + grid[y1][:, x1] * fx) * fy)
         out += amp * g
     out -= out.min()
     out *= 255.0 / max(out.max(), 1e-6)

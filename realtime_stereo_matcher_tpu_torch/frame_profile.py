@@ -1,10 +1,10 @@
 """Where the device time of a 720p frame, or of a training step, goes, by
 kernel.
 
-    python -m realtime_stereo_matcher_tpu_torch.frame_profile [--frames 8]
+    python -m realtime_stereo_matcher_tpu_torch.frame_profile [--model v1|v3] [--frames 8]
     python -m realtime_stereo_matcher_tpu_torch.frame_profile --train [--frames 4]
 
-Builds v1 as ``bench.py`` does, runs ``--frames`` frames of the bf16 kernel
+Builds the model (v1 by default, or v3) as ``bench.py`` does, runs ``--frames`` frames of the bf16 kernel
 path under ``torch.profiler`` after two warm-up frames, and prints one JSON
 line: per group of device kernels (each hand-written kernel by its template
 shape, and the plain PyTorch ops by name) the device ms per frame and the
@@ -38,8 +38,9 @@ from realtime_stereo_matcher_tpu_torch.models.fast_train import (
 )
 from realtime_stereo_matcher_tpu_torch.train.trainer import create_train_state
 
-# rsm::conv_kernel<T, CI, CO, S, KD>
-_CONV = re.compile(r"conv_kernel<([^,]+),\s*(\d+),\s*(\d+),\s*(\d+),\s*(\d+)>")
+# rsm::conv_kernel<T, CI, CO, S, KD, K>
+_CONV = re.compile(r"conv_kernel<([^,]+),\s*(\d+),\s*(\d+),\s*(\d+),"
+                   r"\s*(\d+)(?:,\s*(\d+))?>")
 # dw_partial_kernel<T, KD, CI, CO>
 _DW = re.compile(r"dw_partial_kernel<([^,]+),\s*(\d+),\s*(\d+),\s*(\d+)>")
 
@@ -49,8 +50,9 @@ def kernel_group(name: str) -> str:
     anything else by its name up to the template arguments."""
     m = _CONV.search(name)
     if m:
-        _, ci, co, s, kd = m.groups()
+        _, ci, co, s, kd, k = m.groups()
         kernel = ("fused_conv3d" if kd == "3" else
+                  "fused_conv4x4_s2" if k == "4" else
                   "fused_conv3x3_s2" if s == "2" else "fused_conv3x3")
         return f"{kernel} {ci}->{co}"
     m = _DW.search(name)
@@ -63,10 +65,10 @@ def kernel_group(name: str) -> str:
     return "plain: " + name.split("<")[0].split("(")[0][:80].strip()
 
 
-def _frame_fn(dev, seed):
-    """One bf16 720p frame of the kernel path."""
-    model = build_model(json.loads(bench.CONFIG.read_text())["model"],
-                        device=dev, generator=torch.Generator().manual_seed(seed))
+def _frame_fn(dev, seed, model="v1"):
+    """One bf16 720p frame of ``model``'s kernel path."""
+    model = build_model(bench.model_config(model), device=dev,
+                        generator=torch.Generator().manual_seed(seed))
     forward = make_fast_forward(model)
     gen = torch.Generator(device=dev).manual_seed(seed)
     left, right = (torch.rand((1, *bench.HW, 3), generator=gen, device=dev)
@@ -85,9 +87,11 @@ def _train_step_fn(dev, seed):
     return lambda: step(state, *batch)
 
 
-def profile_frames(frames: int = 8, seed: int = 0, train: bool = False) -> dict:
+def profile_frames(frames: int = 8, seed: int = 0, train: bool = False,
+                   model: str = "v1") -> dict:
     dev = torch.device("cuda", 0)
-    run = (_train_step_fn if train else _frame_fn)(dev, seed)
+    run = (_train_step_fn(dev, seed) if train
+           else _frame_fn(dev, seed, model))
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -121,6 +125,7 @@ def profile_frames(frames: int = 8, seed: int = 0, train: bool = False) -> dict:
                   "launches_per_frame": count[g] / frames}
               for g, t in time_us.most_common()}
     return {"unit": "train step" if train else "frame", "frames": frames,
+            "model": "v1" if train else model,
             "device": torch.cuda.get_device_name(dev),
             "device_ms_per_frame": busy / 1e3 / frames,
             "span_ms_per_frame": span / 1e3 / frames,
@@ -132,12 +137,17 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=8,
                     help="frames (or training steps) to profile")
     ap.add_argument("--train", action="store_true",
-                    help="profile bf16 kernel-path training steps")
+                    help="profile bf16 kernel-path training steps (v1)")
+    ap.add_argument("--model", choices=sorted(bench.MODELS), default="v1",
+                    help="model of the inference frame")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("frame_profile: CUDA is not available", file=sys.stderr)
         return 1
-    print(json.dumps(profile_frames(args.frames, train=args.train)))
+    if args.train and args.model != "v1":
+        ap.error("--train profiles v1 only")
+    print(json.dumps(profile_frames(args.frames, train=args.train,
+                                    model=args.model)))
     return 0
 
 

@@ -43,6 +43,9 @@ _SIGNATURES = {
     # x, w, scale, bias, res, out, dtype, n, h, w, cin, cout, ho, wo,
     # stride, dilation, act, alpha, device, stream
     "rsm_conv3x3": [_P] * 6 + [_I] * 11 + [ctypes.c_float, _I, _P],
+    # x, w, scale, bias, out, dtype, n, h, w, cin, cout, ho, wo, act, alpha,
+    # device, stream
+    "rsm_conv4x4_s2": [_P] * 5 + [_I] * 9 + [ctypes.c_float, _I, _P],
     # x, w, scale, bias, out, dtype, n, d, h, w, cin, cout, act, device, stream
     "rsm_conv3d": [_P] * 5 + [_I] * 9 + [_P],
     # x, g, work, out, dtype, n, d, h, w, cin, cout, kd, dil, device, stream

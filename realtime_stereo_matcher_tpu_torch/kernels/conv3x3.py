@@ -1,5 +1,5 @@
-"""Fused 3x3 convolution (port of the TPU kernels K1 and K2 of
-``realtime_stereo_matcher_tpu/kernels/conv3x3.py``).
+"""Fused 3x3 and 4x4 stride-2 convolutions (port of the TPU kernels K1, K2
+and K2-4x4 of ``realtime_stereo_matcher_tpu/kernels/conv3x3.py``).
 
 ``fused_conv3x3`` computes, on NHWC tensors,
 
@@ -14,6 +14,12 @@ On a CUDA tensor it launches the hand-written kernel of ``csrc/conv3x3.cu``
 (stride 1 counts as ``fused_conv3x3``, stride 2 as ``fused_conv3x3_s2``, the
 two TPU kernels it replaces); on a CPU tensor it runs
 :func:`fused_conv3x3_plain`.  There is no fallback from the one to the other.
+
+``fused_conv4x4_s2`` is the v3 U-Net's downsampler, a 4x4 stride-2 conv with
+TF-SAME padding (output pixel X reads input 2X-1 .. 2X+2, so H and W become
+ceil(H / 2) and ceil(W / 2)) and the same epilogue, without a residual.  On
+a CUDA tensor it launches the kernel of ``csrc/conv3x3.cu`` (counted as
+``fused_conv4x4_s2``), on a CPU tensor :func:`fused_conv4x4_s2_plain`.
 """
 
 from __future__ import annotations
@@ -25,17 +31,30 @@ import torch.nn.functional as F
 from torch import nn
 
 from realtime_stereo_matcher_tpu_torch.kernels import _build
+from realtime_stereo_matcher_tpu_torch.models.layers import tf_same_pad_k4s2
 
 # (C_in, C_out) pairs csrc/conv3x3.cu instantiates, by stride
-SUPPORTED_CHANNELS = {1: {(32, 32), (4, 32), (32, 1), (32, 4), (1, 32)},
+SUPPORTED_CHANNELS = {1: {(32, 32), (4, 32), (32, 1), (32, 4), (1, 32),
+                          (3, 32)},
                       2: {(32, 32), (3, 32)}}
 KERNEL_NAMES = {1: "fused_conv3x3", 2: "fused_conv3x3_s2"}
+KERNEL_4X4 = "fused_conv4x4_s2"
+CHANNELS_4X4 = (32, 32)  # the (C_in, C_out) csrc/conv3x3.cu instantiates
 _ACT_CODES = {"none": 0, "relu": 1}  # a float is leaky ReLU (code 2)
 
 
 def output_hw(h: int, w: int, stride: int) -> tuple[int, int]:
     """Output size of a 3x3 conv with torch padding = dilation."""
     return ((h - 1) // stride + 1, (w - 1) // stride + 1)
+
+
+def _act_code(act) -> tuple[int, float]:
+    """The C interface's (act, alpha) for ``"none"``, ``"relu"`` or a slope."""
+    if isinstance(act, float):
+        return 2, act
+    if act in _ACT_CODES:
+        return _ACT_CODES[act], 0.0
+    raise ValueError(f"act must be 'relu', 'none' or a float, not {act!r}")
 
 
 def _activate(y: torch.Tensor, act) -> torch.Tensor:
@@ -105,12 +124,7 @@ def fused_conv3x3(x, w, scale, bias, *, stride=1, dilation=1, act="relu",
     if residual is not None:
         _build.require(residual, "residual", shape=(n, ho, wo, cout),
                        dtype=x.dtype, device=dev)
-    if isinstance(act, float):
-        act_code, alpha = 2, act
-    elif act in _ACT_CODES:
-        act_code, alpha = _ACT_CODES[act], 0.0
-    else:
-        raise ValueError(f"act must be 'relu', 'none' or a float, not {act!r}")
+    act_code, alpha = _act_code(act)
 
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=dev)
     name = KERNEL_NAMES[stride]
@@ -121,6 +135,60 @@ def fused_conv3x3(x, w, scale, bias, *, stride=1, dilation=1, act="relu",
         dilation, act_code, alpha, dev.index, _build.stream_of(x))
     _build.check(rc, name)
     _build.LAUNCHES[name] += 1
+    return out
+
+
+def fused_conv4x4_s2_plain(x, w, scale, bias, *, act=0.2):
+    """Plain PyTorch version of :func:`fused_conv4x4_s2`: TF-SAME zero pad
+    (1 before; 1 after an even size, 2 after an odd one), float32 stride-2
+    ``F.conv2d``, then K1's epilogue (scale, bias, activation, cast).
+
+    x (N, H, W, C_in), w (4, 4, C_in, C_out) HWIO, scale/bias (C_out,) f32.
+    Returns (N, ceil(H/2), ceil(W/2), C_out) in x's dtype."""
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    (top, bottom), (left, right) = map(tf_same_pad_k4s2, x.shape[1:3])
+    xp = F.pad(x.to(acc).permute(0, 3, 1, 2), (left, right, top, bottom))
+    y = F.conv2d(xp, w.to(acc).permute(3, 2, 0, 1), stride=2)
+    y = _activate(y.permute(0, 2, 3, 1) * scale.to(acc) + bias.to(acc), act)
+    return y.to(x.dtype).contiguous()
+
+
+def fused_conv4x4_s2(x, w, scale, bias, *, act=0.2):
+    """Fused 4x4 stride-2 TF-SAME conv + scale/bias + activation, NHWC.
+
+    Arguments as in :func:`fused_conv4x4_s2_plain`.  On CUDA: x and w share
+    one dtype (float32 or bfloat16), scale and bias are float32, all are
+    contiguous, and (C_in, C_out) is ``CHANNELS_4X4``."""
+    if x.device.type == "cpu":
+        return fused_conv4x4_s2_plain(x, w, scale, bias, act=act)
+    if x.device.type != "cuda":
+        raise ValueError(f"{KERNEL_4X4}: unsupported device {x.device}")
+    if x.ndim != 4 or w.ndim != 4:
+        raise ValueError(f"{KERNEL_4X4}: x must be NHWC and w HWIO")
+    n, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    if (cin, cout) != CHANNELS_4X4:
+        raise ValueError(f"{KERNEL_4X4}: {cin} -> {cout} channels not "
+                         f"instantiated; have {CHANNELS_4X4}")
+    if x.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{KERNEL_4X4}: dtype {x.dtype} not supported")
+    if n > 65535:
+        raise ValueError(f"{KERNEL_4X4}: batch exceeds the grid limit")
+    ho, wo = (h + 1) // 2, (wd + 1) // 2  # TF-SAME: ceil(H / 2), ceil(W / 2)
+    dev = x.device
+    _build.require(x, "x", shape=x.shape, dtype=x.dtype, device=dev)
+    _build.require(w, "w", shape=(4, 4, cin, cout), dtype=x.dtype, device=dev)
+    for name, t in (("scale", scale), ("bias", bias)):
+        _build.require(t, name, shape=(cout,), dtype=torch.float32, device=dev)
+    act_code, alpha = _act_code(act)
+
+    out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=dev)
+    rc = _build.library().rsm_conv4x4_s2(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), _build.DTYPE_CODES[x.dtype], n, h, wd, cin, cout, ho,
+        wo, act_code, alpha, dev.index, _build.stream_of(x))
+    _build.check(rc, KERNEL_4X4)
+    _build.LAUNCHES[KERNEL_4X4] += 1
     return out
 
 

@@ -1,14 +1,18 @@
-"""JAX variables -> torch state dict for MobileStereoNet v1.
+"""JAX variables -> torch state dict for MobileStereoNet v1 and v3.
 
-The inverse of the JAX package's ``import_torch_state_dict`` for v1
-(``realtime_stereo_matcher_tpu/models/torch_import.py``, ``_map_v1v2``):
-it takes the Flax ``{"params", "batch_stats"}`` tree as nested dicts of
-numpy arrays and returns a state dict that ``MobileStereoNet.load_state_dict``
-accepts, so weights initialised or trained by the JAX package run in the
-port.  This module reads only the array tree; it imports nothing of JAX.
+The inverse of the JAX package's ``import_torch_state_dict`` for v1 and v3
+(``realtime_stereo_matcher_tpu/models/torch_import.py``, ``_map_v1v2`` and
+``_map_v3``): it takes the Flax ``{"params", "batch_stats"}`` tree as nested
+dicts of numpy arrays and returns a state dict that the port's
+``MobileStereoNet`` / ``MobileStereoNetV3`` ``load_state_dict`` accepts, so
+weights initialised or trained by the JAX package run in the port.  This
+module reads only the array tree; it imports nothing of JAX.
 
 Layouts: Flax HWIO conv kernels become torch OIHW, DHWIO become OIDHW;
-BatchNorm scale/bias/mean/var become weight/bias/running_mean/running_var.
+Flax ``ConvTranspose`` kernels (kh, kw, I, O), whose taps the JAX importer
+flips, become torch ``ConvTranspose2d`` (I, O, kh, kw) with the taps flipped
+back; BatchNorm scale/bias/mean/var become
+weight/bias/running_mean/running_var.
 
 The map is linear and leaf by leaf, so it carries a gradient as well: a
 tree without ``batch_stats`` (``{"params": grads}``, ``grads`` shaped like
@@ -34,14 +38,21 @@ def _kernel(k) -> torch.Tensor:
     return _tensor(np.moveaxis(k, (-1, -2), (0, 1)))
 
 
+def _kernel_transposed(k) -> torch.Tensor:
+    """Flax ConvTranspose (kh, kw, I, O), taps flipped -> torch (I, O, kh, kw)
+    (the inverse of the JAX package's ``_t_convt2d``)."""
+    k = np.asarray(k, np.float32)[::-1, ::-1]
+    return _tensor(np.transpose(k, (2, 3, 0, 1)))
+
+
 class _Exporter:
     def __init__(self, variables: Mapping):
         self.params = variables["params"]
         self.stats = variables.get("batch_stats")
         self.sd: dict[str, torch.Tensor] = {}
 
-    def conv(self, p: Mapping, tkey: str):
-        self.sd[f"{tkey}.weight"] = _kernel(p["kernel"])
+    def conv(self, p: Mapping, tkey: str, kernel=_kernel):
+        self.sd[f"{tkey}.weight"] = kernel(p["kernel"])
         if "bias" in p:
             self.sd[f"{tkey}.bias"] = _tensor(p["bias"])
 
@@ -80,11 +91,56 @@ def _count(tree: Mapping, prefix: str) -> int:
     return n
 
 
+def _refine_nets(e: _Exporter, tprefix: str):
+    for r in range(_count(e.params, "RefineNet")):
+        p, s = e.params[f"RefineNet_{r}"], _sub(e.stats, f"RefineNet_{r}")
+        tp = f"{tprefix}.{r}.conv0"
+        e.conv_bn_seq(p["ConvBN_0"], _sub(s, "ConvBN_0"), f"{tp}.0")
+        n_blocks = _count(p, "ResBlock")
+        for b in range(n_blocks):
+            e.resblock(p[f"ResBlock_{b}"], _sub(s, f"ResBlock_{b}"),
+                       f"{tp}.{1 + b}")
+        e.conv(p["Conv_0"], f"{tp}.{1 + n_blocks}")
+
+
+def _cost_filter(e: _Exporter):
+    p, s = e.params["CostFilter3D_0"], _sub(e.stats, "CostFilter3D_0")
+    for j in range(4):
+        # one flat Sequential: conv at 3j, BN at 3j+1, ReLU at 3j+2
+        e.convbn(p[f"ConvBN_{j}"], _sub(s, f"ConvBN_{j}"),
+                 f"cost_filter.{3 * j}", f"cost_filter.{3 * j + 1}")
+    e.conv(p["Conv_0"], "cost_filter.12")
+
+
+def _unet(e: _Exporter):
+    """Flax UNetFeatureExtractor (auto-named Conv_c in call order) -> the
+    port's ``down_layers`` / ``up_layers`` (JAX torch_import ``_map_v3``)."""
+    p, tp = e.params["UNetFeatureExtractor_0"], "feature_extractor"
+    down = _count(p, "ConvTranspose")
+    e.conv(p["Conv_0"], f"{tp}.down_layers.0.0")
+    c = 1
+    for i in range(1, down + 1):
+        for j in range(1 + (3 if i == down else 1)):  # k4s2, then 3x3 convs
+            e.conv(p[f"Conv_{c}"], f"{tp}.down_layers.{i}.{2 * j}")
+            c += 1
+    for j in range(down):
+        e.conv(p[f"ConvTranspose_{j}"], f"{tp}.up_layers.{j}.up_conv.0",
+               kernel=_kernel_transposed)
+        for q in range(3):
+            e.conv(p[f"Conv_{c}"], f"{tp}.up_layers.{j}.merge_conv.{2 * q}")
+            c += 1
+
+
 def from_jax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
-    """Flax MobileStereoNet v1 variables -> port ``state_dict``; without
-    ``batch_stats``, a parameter (or gradient) tree -> the port's
+    """Flax MobileStereoNet v1 or v3 variables -> port ``state_dict``;
+    without ``batch_stats``, a parameter (or gradient) tree -> the port's
     parameters by name."""
     e = _Exporter(variables)
+    if "UNetFeatureExtractor_0" in e.params:  # v3
+        _unet(e)
+        _cost_filter(e)
+        _refine_nets(e, "refine_layers")
+        return e.sd
 
     p, s = e.params["FeatureEncoder_0"], _sub(e.stats, "FeatureEncoder_0")
     down = _count(p, "ConvBN")
@@ -94,21 +150,6 @@ def from_jax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
         e.resblock(p[f"ResBlock_{i}"], _sub(s, f"ResBlock_{i}"),
                    f"feature_extractor.{2 * i + 1}")
     e.conv(p["Conv_0"], f"feature_extractor.{2 * down}")
-
-    p, s = e.params["CostFilter3D_0"], _sub(e.stats, "CostFilter3D_0")
-    for j in range(4):
-        # one flat Sequential: conv at 3j, BN at 3j+1, ReLU at 3j+2
-        e.convbn(p[f"ConvBN_{j}"], _sub(s, f"ConvBN_{j}"),
-                 f"cost_filter.{3 * j}", f"cost_filter.{3 * j + 1}")
-    e.conv(p["Conv_0"], "cost_filter.12")
-
-    for r in range(_count(e.params, "RefineNet")):
-        p, s = e.params[f"RefineNet_{r}"], _sub(e.stats, f"RefineNet_{r}")
-        tp = f"refine_layer.{r}.conv0"
-        e.conv_bn_seq(p["ConvBN_0"], _sub(s, "ConvBN_0"), f"{tp}.0")
-        n_blocks = _count(p, "ResBlock")
-        for b in range(n_blocks):
-            e.resblock(p[f"ResBlock_{b}"], _sub(s, f"ResBlock_{b}"),
-                       f"{tp}.{1 + b}")
-        e.conv(p["Conv_0"], f"{tp}.{1 + n_blocks}")
+    _cost_filter(e)
+    _refine_nets(e, "refine_layer")
     return e.sd

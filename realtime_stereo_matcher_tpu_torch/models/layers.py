@@ -1,4 +1,4 @@
-"""Building blocks of the v1 model (port of ``realtime_stereo_matcher_tpu/models/layers.py``).
+"""Building blocks of the v1 and v3 models (port of ``realtime_stereo_matcher_tpu/models/layers.py``).
 
 The modules are plain ``nn.Sequential`` stacks laid out as in the reference
 torch model, so their state-dict keys are the reference's
@@ -8,6 +8,10 @@ functions of the port take NHWC.
 
 Padding: the JAX package's ``torch_pad(p)`` spells out the symmetric
 padding that torch's ``padding=p`` gives, so the port passes ``padding=p``.
+Flax ``padding="SAME"`` on v3's 4x4 stride-2 convs is TensorFlow's SAME,
+which pads one more row and column at the far end of an odd size than at
+the near end; torch's ``padding=1`` does not, so :class:`SameConv2d` pads
+explicitly (:func:`tf_same_pad_k4s2`).
 BatchNorm uses the torch defaults the JAX package pins: eps 1e-5 and
 momentum 0.1 (flax momentum 0.9).  In train mode it follows flax, not torch
 (:class:`BatchNorm2d`): the running variance takes the biased batch
@@ -19,10 +23,37 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
+LEAKY_SLOPE = 0.2  # the v3 U-Net's leaky ReLU (JAX layers.leaky_relu_02)
+
+
+def leaky_relu_02(x: torch.Tensor) -> torch.Tensor:
+    """Leaky ReLU with negative slope 0.2 (v3 U-Net activation)."""
+    return F.leaky_relu(x, LEAKY_SLOPE)
+
+
+def tf_same_pad_k4s2(n: int) -> tuple[int, int]:
+    """TF-SAME (low, high) padding of a 4-wide, stride-2 conv along an axis
+    of size ``n``: 1 before, and 1 after an even size or 2 after an odd
+    one, so the output has ceil(n / 2) positions."""
+    return 1, 1 + n % 2
+
+
+class SameConv2d(nn.Conv2d):
+    """4x4 stride-2 conv with TF-SAME zero padding (reference ``SameConv2d``,
+    model/mobile_stereo_net_v3.py:146-167; flax ``padding="SAME"``)."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(in_ch, out_ch, 4, stride=2, padding=0, bias=True)
+
+    def forward(self, x):  # NCHW
+        (top, bottom), (left, right) = (tf_same_pad_k4s2(n)
+                                        for n in x.shape[-2:])
+        return super().forward(F.pad(x, (left, right, top, bottom)))
 
 
 def batch_stats(y: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
@@ -125,7 +156,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     BatchNorm keeps its deterministic defaults.  ``generator`` must live on
     the parameters' device."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
+        # weight[0] spans the fan-in: (C_in / groups, k...) of a conv, and
+        # (C_out / groups, k...) of a transposed conv, as torch counts it
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:

@@ -12,6 +12,8 @@ from realtime_stereo_matcher_tpu_torch.ops.padding import (
 from realtime_stereo_matcher_tpu_torch.ops.sampling import (
     resize_bilinear,
     resize_nearest,
+    warp_by_flow_map,
+    warp_by_flow_map_banded,
 )
 
 __all__ = [
@@ -22,4 +24,6 @@ __all__ = [
     "resize_nearest",
     "shift_stack",
     "soft_argmin",
+    "warp_by_flow_map",
+    "warp_by_flow_map_banded",
 ]

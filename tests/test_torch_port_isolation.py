@@ -69,10 +69,21 @@ TRAIN_MODULES = (
 )
 
 
+# the v3 slice's modules, named for the same reason
+V3_MODULES = (
+    "realtime_stereo_matcher_tpu_torch.kernels.unet",
+    "realtime_stereo_matcher_tpu_torch.kernels.refine_stack",
+    "realtime_stereo_matcher_tpu_torch.ops.sampling",
+    "realtime_stereo_matcher_tpu_torch.models.stereo_net",
+    "realtime_stereo_matcher_tpu_torch.models.fast_infer",
+)
+
+
 def test_imports_with_jax_blocked():
     """Every port module and chip_smoke import with the banned names made
     unimportable, so no import reaches them, directly or transitively."""
     assert set(TRAIN_MODULES) <= set(_module_names())
+    assert set(V3_MODULES) <= set(_module_names())
     code = (
         "import importlib, sys\n"
         f"banned = {BANNED!r}\n"
@@ -115,8 +126,11 @@ def test_bench_refuses_to_run_without_cuda():
     from realtime_stereo_matcher_tpu_torch import bench
 
     assert bench.main([]) == 1
+    assert bench.main(["--model", "v3"]) == 1
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench.run_bench(pairs=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.run_bench(pairs=1, model="v3")
 
 
 def test_kernel_sources_have_no_torch_headers_and_target_sm90a():
@@ -147,6 +161,8 @@ def test_kernels_on_cuda_match_plain():
     from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
         fused_conv3x3,
         fused_conv3x3_plain,
+        fused_conv4x4_s2,
+        fused_conv4x4_s2_plain,
     )
     from realtime_stereo_matcher_tpu_torch.kernels.cost_filter3d import (
         fused_conv3d,
@@ -163,6 +179,7 @@ def test_kernels_on_cuda_match_plain():
     for stride, dil, cin, cout, act, res in [(1, 1, 32, 32, "relu", True),
                                              (1, 8, 32, 32, "relu", False),
                                              (1, 1, 4, 32, 0.2, False),
+                                             (1, 1, 3, 32, 0.2, False),
                                              (1, 1, 32, 1, "none", False),
                                              (2, 1, 3, 32, "relu", False)]:
         x, w = rand(2, 37, 70, cin), rand(3, 3, cin, cout) * 0.2
@@ -179,9 +196,14 @@ def test_kernels_on_cuda_match_plain():
     torch.testing.assert_close(fused_conv3d(x, w, s, b),
                                fused_conv3d_plain(x, w, s, b),
                                atol=1e-3, rtol=1e-3)
+    # the 4x4 stride-2 TF-SAME conv at an odd size (37 x 70 -> 19 x 35)
+    x, w = rand(2, 37, 70, 32), rand(4, 4, 32, 32) * 0.2
+    torch.testing.assert_close(fused_conv4x4_s2(x, w, s, b, act=0.2),
+                               fused_conv4x4_s2_plain(x, w, s, b, act=0.2),
+                               atol=1e-3, rtol=1e-3)
     torch.cuda.synchronize()
-    assert dict(LAUNCHES) == {"fused_conv3x3": 4, "fused_conv3x3_s2": 1,
-                              "fused_conv3d": 1}
+    assert dict(LAUNCHES) == {"fused_conv3x3": 5, "fused_conv3x3_s2": 1,
+                              "fused_conv4x4_s2": 1, "fused_conv3d": 1}
     with pytest.raises(ValueError, match="not instantiated"):
         fused_conv3x3(rand(1, 8, 8, 16), rand(3, 3, 16, 16), s[:16], b[:16])
     with pytest.raises(ValueError, match="contiguous"):

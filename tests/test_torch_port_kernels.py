@@ -97,6 +97,7 @@ CONV3X3_CASES = [
     (1, 1, 4, 32, "relu", False),
     (1, 1, 32, 1, "none", False),
     (1, 2, 32, 32, 0.2, True),
+    (1, 1, 3, 32, 0.2, False),   # v3 U-Net stem
     (2, 1, 3, 32, "relu", False),
     (2, 1, 32, 32, "relu", False),
 ]

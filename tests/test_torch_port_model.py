@@ -32,7 +32,10 @@ from realtime_stereo_matcher_tpu.models.torch_import import (
 from realtime_stereo_matcher_tpu_torch.models import build_model
 from realtime_stereo_matcher_tpu_torch.models.convert import from_jax_variables
 from realtime_stereo_matcher_tpu_torch.models.fast_infer import make_fast_forward
-from realtime_stereo_matcher_tpu_torch.models.stereo_net import RefineNet
+from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
+    MobileStereoNetV3,
+    RefineNet,
+)
 
 V1 = {"type": "MobileStereoNet", "parameters": {}}
 
@@ -207,12 +210,24 @@ def test_build_model_is_seeded():
     assert not torch.equal(weights(1), weights(2))
 
 
-@pytest.mark.parametrize("mtype", ["MobileStereoNetV2", "MobileStereoNetV3",
-                                   "MobileStereoNetV4", "MobileDispNetC",
-                                   "OpenCVSGBMModule"])
+@pytest.mark.parametrize("mtype", ["MobileStereoNetV2", "MobileStereoNetV4",
+                                   "MobileDispNetC", "OpenCVSGBMModule"])
 def test_unported_types_name_the_roadmap(mtype):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model({"type": mtype, "parameters": {}}, device="cpu")
+
+
+def test_v3_is_ported():
+    """MobileStereoNetV3 builds from the repo's v3 config, in eval mode."""
+    import json
+    import pathlib
+
+    cfg = json.loads((pathlib.Path(__file__).resolve().parent.parent
+                      / "configure" / "stereo_net_config_v3.json").read_text())
+    model = build_model(cfg["model"], device="cpu")
+    assert type(model) is MobileStereoNetV3 and not model.training
+    assert (model.down_factor, model.max_disp, model.hidden_dim) == (3, 192, 32)
+    assert model.refine_dilates == (1, 2, 4, 8, 1, 1)
 
 
 def test_unknown_type_raises():
@@ -228,6 +243,16 @@ def test_default_device_is_cuda_and_never_falls_back():
             build_model(V1)
 
 
-def test_fast_forward_is_v1_only():
-    with pytest.raises(NotImplementedError, match="MobileStereoNet v1"):
+def test_fast_forward_takes_v1_and_v3_only():
+    with pytest.raises(NotImplementedError, match="v1 and v3.*ROADMAP.md"):
         make_fast_forward(RefineNet())
+    v3 = build_model({"type": "MobileStereoNetV3", "parameters": {}},
+                     device="cpu")
+    assert callable(make_fast_forward(v3))
+
+
+def test_v2_still_raises():
+    """v2 stays queued: no model to build, so no kernel path either."""
+    with pytest.raises(NotImplementedError, match="queued in ROADMAP.md"):
+        build_model({"type": "MobileStereoNetV2", "parameters": {}},
+                    device="cpu")

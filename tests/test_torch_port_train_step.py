@@ -10,8 +10,9 @@ package, on the CPU.
   steps (one with the gradient norm under the clip), parameters within 1e-6
   of each leaf's largest magnitude (the two round the AdamW arithmetic
   differently, measured <= 4 float32 ulp);
-* ``make_scene`` against the JAX package's numpy path (its cv2 switched
-  off): disparity and validity exact, images within 1 LSB;
+* ``make_scene`` (numpy only) against the JAX package's ``make_scene`` with
+  cv2 on: disparity and validity exact, images within 1 LSB on at most 1e-3
+  of the pixels (measured <= 1.1e-4, float32 sums in another order);
 * the train-start init in distribution against the JAX package's;
 * ``load_config`` against the JAX package's on every reference config;
 * ``train()`` for 2 steps at 32 x 64 on the kernel path, a checkpoint round
@@ -145,9 +146,14 @@ def test_clip_adamw_step_matches_optax_chain(rng):
 
 
 @pytest.mark.parametrize("seed,hw,max_disp", [(0, (48, 64), 16.0),
-                                              (5, (40, 72), 24.0)])
-def test_make_scene_matches_jax_numpy_path(monkeypatch, seed, hw, max_disp):
-    monkeypatch.setattr(jax_synthetic, "cv2", None)
+                                              (5, (40, 72), 24.0),
+                                              (10 ** 6, (240, 320), 96.0)])
+def test_make_scene_matches_jax_numpy_path(seed, hw, max_disp):
+    """The port's numpy scene against the JAX package's scene made with cv2
+    (its resize and remap), as the JAX package makes it wherever cv2 is
+    installed."""
+    pytest.importorskip("cv2", reason="the JAX package's cv2 path needs cv2")
+    assert jax_synthetic.cv2 is not None
     want = jax_synthetic.make_scene(seed, *hw, max_disp=max_disp)
     got = make_scene(seed, *hw, max_disp=max_disp)
     for name, g, w in zip(("left", "right", "disp", "valid"), got, want):
@@ -155,7 +161,9 @@ def test_make_scene_matches_jax_numpy_path(monkeypatch, seed, hw, max_disp):
     np.testing.assert_array_equal(got[2], want[2])
     np.testing.assert_array_equal(got[3], want[3])
     for g, w in zip(got[:2], want[:2]):
-        assert np.abs(g.astype(np.int16) - w.astype(np.int16)).max() <= 1
+        diff = np.abs(g.astype(np.int16) - w.astype(np.int16))
+        assert diff.max() <= 1
+        assert (diff > 0).mean() <= 1e-3, float((diff > 0).mean())
 
 
 def test_synthetic_batches_contract():
