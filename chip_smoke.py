@@ -37,9 +37,23 @@ imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
    plain step, its bf16 gradients too, then ``train()`` on the kernel path
    in bf16 (the training main path) for 2 warm-up and 8 timed steps, with
    launch counts per step and step times by CUDA events.
-8. report: one ``{"kernels": [...]}`` line, one latency line, the
-   ``nvidia-smi`` name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+8. v2 kernels: the channel pairs v2 adds (K1 7 -> 32 at the 720p refine
+   levels; K1 32 -> 7 and K4 7 -> 32 at the 8 x 240 x 320 training levels)
+   and K7 ``conv3x3_s2`` (forward, dx and dW at (4, 240, 320, 32)) against
+   their plain versions, float32 and bfloat16, then timed beside the plain
+   version, one cuDNN call and the bound.
+9. v2 model and v2 bench: v2 from ``configure/stereo_net_config_v2.json``
+   as v3 in phase 6: the float32 kernel path against the plain float32 v2
+   with the same banded warp at 1280x720, the bf16 kernel path (the v2
+   inference main path) with launch counts, 8 pairs through
+   ``bench.run_bench(model="v2")``.
+10. train v2, train v3: phase 7 on each repo config's own train section
+    (batch 8, 240 x 320).  The plain step warps with the kernel path's
+    band (``banded_warp=True``): at the train-start init the flows run far
+    past the band, where the unbanded warp still samples the image.
+11. report: one ``{"kernels": [...]}`` line, one latency line, the
+    ``nvidia-smi`` name and power limit, and last
+    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no "ok".
 """
@@ -58,7 +72,7 @@ import time
 import torch
 import torch.nn.functional as F
 
-from realtime_stereo_matcher_tpu_torch import bench
+from realtime_stereo_matcher_tpu_torch import bench, frame_profile
 from realtime_stereo_matcher_tpu_torch.config import load_config
 from realtime_stereo_matcher_tpu_torch.data.synthetic import SyntheticBatches
 from realtime_stereo_matcher_tpu_torch.kernels import _build
@@ -74,6 +88,7 @@ from realtime_stereo_matcher_tpu_torch.kernels.cost_filter3d import (
     fused_conv3d_plain,
 )
 from realtime_stereo_matcher_tpu_torch.kernels.train_conv import (
+    conv3x3_s2,
     dw_reduce,
     dw_reduce3d,
     dw_reduce3d_plain,
@@ -120,11 +135,19 @@ LAUNCHES_PER_FRAME_V3 = {"fused_conv3x3": 69, "fused_conv4x4_s2": 6,
                          "fused_conv3d": 5}
 # the training main path: reference config, batch 4 at 480 x 640
 TRAIN_B, TRAIN_HW = 4, (480, 640)
+# v2 and v3 train at their configs' batch 8, 240 x 320
+TRAIN_B_V23, TRAIN_HW_V23 = 8, (240, 320)
 WARMUP_STEPS, TIMED_STEPS = 2, 8
-# launches of one bf16 training step: K1 54 forward + 54 dx, K3 5 + 5,
-# K4 54 2D + 5 3D
+# launches of one bf16 training step: v1 and v2 K1 54 forward + 54 dx, K3
+# 5 + 5, K4 54 2D + 5 3D; v3 K1 39 + 39 (the refines after their plain
+# 65-channel entries), K3 5 + 5, K4 39 2D + 5 3D (the U-Net is plain)
 LAUNCHES_PER_STEP = {"fused_conv3x3": 108, "fused_conv3d": 10,
                      "dw_reduce": 59}
+LAUNCHES_PER_STEP_V3 = {"fused_conv3x3": 78, "fused_conv3d": 10,
+                        "dw_reduce": 44}
+# K7 conv3x3_s2 at the v1 / v2 encoder's second stride-2 conv of a batch-4
+# 480 x 640 step: (4, 240, 320, 32) -> (4, 120, 160, 32)
+K7_SHAPE = (4, 240, 320)
 # first-step gradients against the float32 plain step: per-parameter
 # relative L2 within max(1e-2, 6 x the plain step's own noise floor), the
 # rule of tests/test_fast_train.py, the floor measured by running the plain
@@ -143,6 +166,7 @@ REPLACES = {
     "fused_conv4x4_s2": "realtime_stereo_matcher_tpu/kernels/conv3x3.py:700",
     "fused_conv3d": "realtime_stereo_matcher_tpu/kernels/cost_filter3d.py:213",
     "dw_reduce": "realtime_stereo_matcher_tpu/kernels/train_conv.py:141",
+    "conv3x3_s2": "realtime_stereo_matcher_tpu/kernels/train_conv.py:401",
 }
 SOURCES = {
     "fused_conv3x3": "realtime_stereo_matcher_tpu_torch/csrc/conv3x3.cu",
@@ -150,6 +174,7 @@ SOURCES = {
     "fused_conv4x4_s2": "realtime_stereo_matcher_tpu_torch/csrc/conv3x3.cu",
     "fused_conv3d": "realtime_stereo_matcher_tpu_torch/csrc/conv3d.cu",
     "dw_reduce": "realtime_stereo_matcher_tpu_torch/csrc/dw_reduce.cu",
+    "conv3x3_s2": "realtime_stereo_matcher_tpu_torch/kernels/train_conv.py",
 }
 ROOT = pathlib.Path(__file__).resolve().parent
 # peak memory rate (bytes/s) and dense bf16 tensor-core rate (FLOP/s) from
@@ -421,9 +446,8 @@ def _compare_scaled(got, ref, tol, what):
     return float(err.max()), float(err.max()) / max(scale, 1e-30)
 
 
-def _dw_operands(case, dtype, device, gen):
-    shape = (TRAIN_B, *case["vol"]) if "vol" in case else (TRAIN_B,
-                                                           *case["hw"])
+def _dw_operands(case, dtype, device, gen, batch=TRAIN_B):
+    shape = (batch, *case["vol"]) if "vol" in case else (batch, *case["hw"])
     x = (torch.rand((*shape, case["cin"]), generator=gen, device=device)
          * 2 - 1).to(dtype)
     g = (torch.rand((*shape, case["cout"]), generator=gen, device=device)
@@ -784,10 +808,12 @@ def time_v3_kernels(device, peaks) -> dict:
     return add_bounds(rows, peaks)
 
 
-def check_model_v3(device, hw=HW) -> dict:
-    """The v3 kernel path against the plain v3 with the same banded warp;
-    the bf16 frame is the v3 main path whose launches are counted."""
-    model = seeded_model(device, "v3")
+def check_model_warped(device, name: str, expected: dict,
+                       hw=HW) -> dict:
+    """The v2 or v3 kernel path against the plain model with the same
+    banded warp; the bf16 frame is the model's main path whose launches
+    are counted."""
+    model = seeded_model(device, name)
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
     left, right = (torch.rand((1, *hw, 3), generator=gen, device=device) * 255
                    for _ in range(2))
@@ -797,8 +823,8 @@ def check_model_v3(device, hw=HW) -> dict:
     def note_flow(_, args):
         flows.append(2.0 * float(args[0].abs().max()))
 
-    hooks = [r.register_forward_pre_hook(note_flow)
-             for r in model.refine_layers]
+    refines = model.refine_layers if name == "v3" else model.refine_layer
+    hooks = [r.register_forward_pre_hook(note_flow) for r in refines]
     with torch.no_grad():
         plain = model(left, right, banded_warp=True)
     for h in hooks:
@@ -808,13 +834,167 @@ def check_model_v3(device, hw=HW) -> dict:
     band_effect = [float((a - b).abs().max()) for a, b in zip(plain, unbanded)]
     levels = [dict(level=i, max_abs_flow=f, max_shift=m, in_band=f <= m)
               for i, (f, m) in enumerate(zip(flows, shifts))]
-    log(f"  refine levels, largest |flow| against the warp band: "
+    log(f"  {name} refine levels, largest |flow| against the warp band: "
         f"{json.dumps(levels)}; plain banded vs unbanded warp, max abs "
         f"difference per head {band_effect}")
 
-    result = check_kernel_path(model, left, right, plain,
-                               LAUNCHES_PER_FRAME_V3, "v3 ")
+    result = check_kernel_path(model, left, right, plain, expected,
+                               f"{name} ")
     return dict(result, refine_levels=levels, band_effect=band_effect)
+
+
+# ---------------------------------------------------------------------------
+# v2: the channel pairs v2 adds to K1 and K4, and K7
+# ---------------------------------------------------------------------------
+
+
+def v2_levels():
+    """(720p refine levels; the 240 x 320 training refine levels)."""
+    return ([(HW[0] >> k, HW[1] >> k) for k in (0, 1, 2)],
+            [(TRAIN_HW_V23[0] >> k, TRAIN_HW_V23[1] >> k) for k in (0, 1, 2)])
+
+
+def _k7_operands(dtype, device, gen):
+    """K7's x (in ``dtype``), float32 w and float32 cotangent, all
+    bf16-representable."""
+    def rand(*shape):
+        return (torch.rand(shape, generator=gen, device=device) * 2 - 1
+                ).bfloat16().float()
+
+    x = rand(*K7_SHAPE, 32)
+    w = (rand(3, 3, 32, 32) * 0.1).bfloat16().float()
+    cot = rand(K7_SHAPE[0], K7_SHAPE[1] // 2, K7_SHAPE[2] // 2, 32)
+    return x.to(dtype), w, cot
+
+
+def _k7_plain(x, w):
+    """K7's plain version: ``F.conv2d`` at stride 2 in float32, whose
+    autograd is the plain backward."""
+    y = F.conv2d(x.float().permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                 stride=2, padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def check_v2_kernels(device) -> dict:
+    """K1 7 -> 32 (the v2 refine entry) at the 720p refine levels, K1
+    32 -> 7 and K4 7 -> 32 (its dx and dW) at the training levels, and K7
+    forward, dx and dW, each against its plain version; returns the largest
+    errors (K4 and K7 also over the output's scale)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    worst: dict = {}
+
+    def note(key, err):
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    infer, train_lv = v2_levels()
+    for dtype, tol, dtol, tag in ((torch.float32, TOL_F32, TOL_DW_F32, "f32"),
+                                  (torch.bfloat16, TOL_BF16, TOL_DW_BF16,
+                                   "bf16")):
+        for hw in infer:
+            case = dict(hw=hw, cin=7, cout=32, stride=1, dil=1, act="relu",
+                        res=False)
+            args, kw, _ = conv3x3_operands(case, dtype, device, gen)
+            got = fused_conv3x3(*args, **kw)
+            ref = fused_conv3x3_plain(*(a.float() for a in args), **kw)
+            note(("fused_conv3x3", tag), _compare(
+                got, ref, tol, f"fused_conv3x3 {case} {dtype}"))
+        for hw in train_lv:
+            args = _operands((TRAIN_B_V23, *hw, 32), (3, 3, 32, 7), 7, dtype,
+                             device, gen)
+            got = fused_conv3x3(*args, act="none")
+            ref = fused_conv3x3_plain(*(a.float() for a in args), act="none")
+            note(("fused_conv3x3", tag), _compare(
+                got, ref, tol, f"fused_conv3x3 {hw} 32->7 {dtype}"))
+            x, g = _dw_operands(dict(hw=hw, cin=7, cout=32), dtype, device,
+                                gen, TRAIN_B_V23)
+            err, rel = _compare_scaled(dw_reduce(x, g),
+                                       dw_reduce_plain(x.float(), g.float()),
+                                       dtol, f"dw_reduce {hw} 7->32 {dtype}")
+            note(("dw_reduce", tag), err)
+            note(("dw_reduce", tag, "over scale"), rel)
+        x0, w0, cot = _k7_operands(dtype, device, gen)
+        x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+        y = conv3x3_s2(x, w)
+        gx, gw = torch.autograd.grad((y.float() * cot).sum(), (x, w))
+        xr, wr = x0.float().requires_grad_(), w0.clone().requires_grad_()
+        yr = _k7_plain(xr, wr)
+        rx, rw = torch.autograd.grad((yr * cot).sum(), (xr, wr))
+        for part, got, ref in (("y", y.detach(), yr.detach()), ("dx", gx, rx),
+                               ("dW", gw, rw)):
+            err, rel = _compare_scaled(got, ref, dtol,
+                                       f"conv3x3_s2 {part} {dtype}")
+            note(("conv3x3_s2", tag), err)
+            note(("conv3x3_s2", tag, part, "over scale"), rel)
+        log(f"  K1 7->32 and 32->7, K4 7->32 and K7 within tolerance in "
+            f"{dtype}")
+    return worst
+
+
+def time_v2_kernels(device, peaks) -> dict:
+    """bf16 timings of the v2 pairs at their largest launches (K1 7 -> 32
+    at 720x1280, K1 32 -> 7 and K4 7 -> 32 at 8 x 240 x 320) and of K7
+    forward + backward at (4, 240, 320, 32) beside its plain float32
+    autograd and cuDNN's bf16 forward + backward.  K7's bytes: x, w, the
+    cotangent, y, dx and dW once each; its operations: three stride-2
+    convolutions' worth (its zero-upsampled backward does 4x that)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    rows = {}
+    for key, shape, cin, cout, act in (
+            ("fused_conv3x3 7->32", (1, *HW), 7, 32, "relu"),
+            ("fused_conv3x3 32->7", (TRAIN_B_V23, *TRAIN_HW_V23), 32, 7,
+             "none")):
+        args = _operands((*shape, cin), (3, 3, cin, cout), cout,
+                         torch.bfloat16, device, gen)
+        out = fused_conv3x3(*args, act=act)
+        w_oihw = args[1].permute(3, 2, 0, 1).contiguous()
+        x_nchw = args[0].permute(0, 3, 1, 2)
+        rows[key] = dict(
+            shape=f"{'x'.join(map(str, shape))} {cin}->{cout} {act}",
+            ms=time_ms(lambda: fused_conv3x3(*args, act=act)),
+            plain_ms=time_ms(lambda: fused_conv3x3_plain(*args, act=act)),
+            library_ms=time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1)),
+            bytes=_nbytes(*args, out), flops=2 * out.numel() * 9 * cin)
+    x, g = _dw_operands(dict(hw=TRAIN_HW_V23, cin=7, cout=32),
+                        torch.bfloat16, device, gen, TRAIN_B_V23)
+    out = dw_reduce(x, g)
+    x_nc, g_nc = x.movedim(-1, 1), g.movedim(-1, 1)
+    rows["dw_reduce 7->32"] = dict(
+        shape=f"{TRAIN_B_V23}x{TRAIN_HW_V23[0]}x{TRAIN_HW_V23[1]} 7->32 d1",
+        ms=time_ms(lambda: dw_reduce(x, g)),
+        plain_ms=time_ms(lambda: dw_reduce_plain(x, g)),
+        library_ms=time_ms(lambda: torch.nn.grad.conv2d_weight(
+            x_nc, (32, 7, 3, 3), g_nc, padding=1)),
+        bytes=_nbytes(x, g, out), flops=2 * (x.numel() // 7) * 9 * 7 * 32)
+
+    x0, w0, cot = _k7_operands(torch.bfloat16, device, gen)
+    x, w = x0.requires_grad_(), w0.requires_grad_()
+    cot = cot.bfloat16()
+
+    def step(fn, cot_view=lambda c: c):
+        y = fn(x, w)
+        y.backward(cot_view(cot).to(y.dtype))
+
+    def cudnn(a, b):
+        return F.conv2d(a.movedim(-1, 1), b.permute(3, 2, 0, 1).bfloat16(),
+                        stride=2, padding=1)
+
+    def device_ms(run):
+        """Device time of one call by the profiler: an autograd call this
+        small leaves the device idle while the host issues it, so CUDA
+        events measure the host as well."""
+        return frame_profile.profile_device(run, 5)["device_ms_per_frame"]
+
+    y = conv3x3_s2(x, w)
+    runs = dict(ms=lambda: step(conv3x3_s2), plain_ms=lambda: step(_k7_plain),
+                library_ms=lambda: step(cudnn, lambda c: c.movedim(-1, 1)))
+    rows["conv3x3_s2"] = dict(
+        shape=f"{'x'.join(map(str, K7_SHAPE))} -> {y.shape[1]}x{y.shape[2]} "
+              f"32->32 forward + backward",
+        **{k: time_ms(run) for k, run in runs.items()},
+        device_ms={k: device_ms(run) for k, run in runs.items()},
+        bytes=2 * _nbytes(x, w) + _nbytes(cot, y),
+        flops=3 * 2 * y.numel() * 9 * 32)
+    return add_bounds(rows, peaks)
 
 
 # ---------------------------------------------------------------------------
@@ -823,11 +1003,12 @@ def check_model_v3(device, hw=HW) -> dict:
 
 
 def _grad_errors(grads, want, rtol, what, floor, slack) -> tuple[float, list]:
-    """Per-parameter relative L2 of ``grads`` against ``want``; raises above
-    max(``rtol``, ``slack`` x the relative L2 of ``floor``, another estimate
-    of the same gradient).  Returns the largest error over its limit and the
-    parameters skipped for a gradient norm < 1e-3."""
-    worst, skipped = 0.0, []
+    """Per-parameter relative L2 of ``grads`` against ``want``; raises,
+    naming every parameter above it, where one is above max(``rtol``,
+    ``slack`` x the relative L2 of ``floor``, another estimate of the same
+    gradient).  Returns the largest error over its limit and the parameters
+    skipped for a gradient norm < 1e-3."""
+    worst, skipped, bad = 0.0, [], []
     for k, w in want.items():
         norm = float(w.norm())
         if norm < 1e-3:
@@ -836,9 +1017,11 @@ def _grad_errors(grads, want, rtol, what, floor, slack) -> tuple[float, list]:
         rel = float((grads[k] - w).norm()) / norm
         limit = max(rtol, slack * float((floor[k] - w).norm()) / norm)
         if not rel <= limit:
-            raise AssertionError(f"{what}: gradient of {k} off by {rel:.3e} "
-                                 f"relative L2 (limit {limit:.3e})")
+            bad.append(f"{k} off by {rel:.3e} (limit {limit:.3e})")
         worst = max(worst, rel / limit)
+    if bad:
+        raise AssertionError(f"{what}: gradients beyond their relative L2 "
+                             f"limits: {'; '.join(bad)}")
     return worst, skipped
 
 
@@ -846,14 +1029,18 @@ def _step_grads(model, img1, img2, flow, valid, loss_fn, dtype=None, *,
                 plain_dtype=torch.float32):
     """Loss, gradients and new running stats of one training forward on
     ``model``'s weights: the kernel path in ``dtype``, or the plain model
-    (``dtype=None``) autocast to ``plain_dtype``.  The model's running stats
-    are left as they were."""
+    (``dtype=None``) autocast to ``plain_dtype``, with the kernel path's
+    banded warp where the model warps (v2, v3).  The model's running stats
+    are left as they were.  Returns the loss, the gradients, the new running
+    stats and each head's largest |flow|."""
     model.zero_grad(set_to_none=True)
     before = {k: v.clone() for k, v in running_stats(model).items()}
     if dtype is None:
+        banded = ({} if type(model).__name__ == "MobileStereoNet"
+                  else {"banded_warp": True})
         with torch.autocast(img1.device.type, dtype=plain_dtype,
                             enabled=plain_dtype != torch.float32):
-            preds = model(img1, img2)
+            preds = model(img1, img2, **banded)
         stats = {k: v.clone() for k, v in running_stats(model).items()}
         load_running_stats(model, before)
     else:
@@ -862,22 +1049,28 @@ def _step_grads(model, img1, img2, flow, valid, loss_fn, dtype=None, *,
     loss.backward()
     grads = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
     model.zero_grad(set_to_none=True)
-    return float(loss.detach()), grads, stats
+    flows = [float(p.detach().abs().max()) for p in preds]
+    return float(loss.detach()), grads, stats, flows
 
 
-def check_train(device) -> dict:
+def check_train(device, name: str = "v1") -> dict:
     """The first step's kernel-path gradients against the plain path, then
-    ``train()`` on the kernel path in bf16 with launches and step times."""
-    cfg = load_config(bench.CONFIG)
-    cfg.path = str(ROOT / "_runs" / "chip_smoke_train")  # gitignored
+    ``train()`` on the kernel path in bf16 with launches and step times, on
+    the repo config of ``name`` (v1, v2 or v3) and its train section."""
+    cfg = load_config(bench.MODELS[name][0])
+    cfg.path = str(ROOT / "_runs" / f"chip_smoke_train_{name}")  # gitignored
     cfg.train.fast_kernels = "on"
-    assert tuple(cfg.data.image_size) == TRAIN_HW
-    assert cfg.train.batch_size == TRAIN_B and cfg.model.mixed_precision
+    b, hw = cfg.train.batch_size, tuple(cfg.data.image_size)
+    assert (b, hw) == ((TRAIN_B, TRAIN_HW) if name == "v1"
+                       else (TRAIN_B_V23, TRAIN_HW_V23))
+    assert cfg.model.mixed_precision
+    expected = LAUNCHES_PER_STEP_V3 if name == "v3" else LAUNCHES_PER_STEP
     t0 = time.perf_counter()
-    data = SyntheticBatches(TRAIN_B, TRAIN_HW,
-                            n_batches=WARMUP_STEPS + TIMED_STEPS, seed0=SEED,
-                            max_disp=96.0, device=device)
-    log(f"  {TRAIN_B * len(data)} synthetic scenes at {TRAIN_HW} in "
+    # scenes up to 96 px of disparity at 640 px wide, as wide at 320
+    data = SyntheticBatches(b, hw, n_batches=WARMUP_STEPS + TIMED_STEPS,
+                            seed0=SEED, max_disp=96.0 * hw[1] / TRAIN_HW[1],
+                            device=device)
+    log(f"  {name}: {b * len(data)} synthetic scenes at {hw} in "
         f"{time.perf_counter() - t0:.3f} s")
 
     # (a), (b): the first step of train() (same seed, same first batch)
@@ -885,9 +1078,10 @@ def check_train(device) -> dict:
     batch = next(iter(data))[1:]
     loss_fn = build_loss_function({"type": cfg.train.loss.type,
                                    "parameters": cfg.train.loss.parameters})
-    plain_loss, plain_g, plain_s = _step_grads(model, *batch, loss_fn)
-    _, rev_g, _ = _step_grads(model, *(t.flip(0) for t in batch), loss_fn)
-    k32_loss, k32_g, k32_s = _step_grads(model, *batch, loss_fn, torch.float32)
+    plain_loss, plain_g, plain_s, flows = _step_grads(model, *batch, loss_fn)
+    _, rev_g, _, _ = _step_grads(model, *(t.flip(0) for t in batch), loss_fn)
+    k32_loss, k32_g, k32_s, _ = _step_grads(model, *batch, loss_fn,
+                                            torch.float32)
     if not abs(k32_loss - plain_loss) <= 1e-4 * abs(plain_loss):
         raise AssertionError(f"f32 kernel-path loss {k32_loss} vs plain "
                              f"{plain_loss}")
@@ -900,18 +1094,21 @@ def check_train(device) -> dict:
         if bool((err > 1e-4 + 1e-4 * v.abs()).any()):
             raise AssertionError(f"BN stat {k}: max err {float(err.max())}")
         stat_err = max(stat_err, float(err.max()))
-    k16_loss, k16_g, _ = _step_grads(model, *batch, loss_fn, torch.bfloat16)
-    _, p16_g, _ = _step_grads(model, *batch, loss_fn,
+    k16_loss, k16_g, _, _ = _step_grads(model, *batch, loss_fn,
+                                        torch.bfloat16)
+    _, p16_g, _, _ = _step_grads(model, *batch, loss_fn,
                               plain_dtype=torch.bfloat16)
     g16_err, _ = _grad_errors(k16_g, plain_g, GRAD_RTOL_BF16,
                               "bf16 kernel path", p16_g, GRAD_BF16_FLOOR_SLACK)
     rel16 = {k: (float((k16_g[k] - w).norm()) / float(w.norm()),
                  float((p16_g[k] - w).norm()) / float(w.norm()))
              for k, w in plain_g.items() if k not in skipped}
-    log(f"  first step: loss plain f32 {plain_loss:.6f}, kernel f32 "
+    log(f"  {name} first step: loss plain f32 {plain_loss:.6f}, kernel f32 "
         f"{k32_loss:.6f}, kernel bf16 {k16_loss:.6f}; worst gradient rel L2 "
         f"f32 {g32_err:.3e}, bf16 {g16_err:.3e} of its limit; BN stats max "
-        f"err {stat_err:.3e}; skipped (norm < 1e-3): {skipped}")
+        f"err {stat_err:.3e}; skipped (norm < 1e-3): {skipped}; largest "
+        f"|flow| per head of the plain f32 step (full-resolution px) "
+        f"{flows}")
     log("  bf16 gradient rel L2 (kernel, plain autocast) vs f32 plain, "
         "worst 8: " + json.dumps(sorted(rel16.items(),
                                         key=lambda kv: -kv[1][0])[:8]))
@@ -942,9 +1139,9 @@ def check_train(device) -> dict:
     per_step = [{k: v - prev.get(k, 0) for k, v in cur.items()}
                 for prev, cur in zip([{}] + launches, launches)]
     for i, counts in enumerate(per_step):
-        if counts != LAUNCHES_PER_STEP:
-            raise AssertionError(f"step {i} launches {counts}, expected "
-                                 f"{LAUNCHES_PER_STEP}")
+        if counts != expected:
+            raise AssertionError(f"{name} step {i} launches {counts}, "
+                                 f"expected {expected}")
     loss_values = [float(v) for v in losses]
     if len(loss_values) != WARMUP_STEPS + TIMED_STEPS or not all(
             math.isfinite(v) for v in loss_values):
@@ -965,8 +1162,8 @@ def check_train(device) -> dict:
                                   grad_f32_over_limit=g32_err,
                                   grad_bf16_over_limit=g16_err,
                                   bn_stat_max_err=stat_err,
-                                  skipped=skipped))
-    log(f"  train(): {len(loss_values)} bf16 steps, launches per step "
+                                  skipped=skipped, max_abs_flow=flows))
+    log(f"  {name} train(): {len(loss_values)} bf16 steps, launches per step "
         f"{per_step[-1]}, step median {result['step_ms_median']:.3f} ms, "
         f"min {result['step_ms_min']:.3f} ms; losses {loss_values}")
     return result
@@ -1016,59 +1213,110 @@ def main() -> int:
         v3_rows = time_v3_kernels(device, peaks)
         log(json.dumps({"v3_kernel_times": v3_rows}))
     with Phase("v3 model"):
-        v3_result = check_model_v3(device)
+        v3_result = check_model_warped(device, "v3", LAUNCHES_PER_FRAME_V3)
     with Phase("v3 bench"):
         v3_record = run_checked_bench("v3", LAUNCHES_PER_FRAME_V3)
     with Phase("train"):
         train_result = check_train(device)
+    with Phase("v2 kernels"):
+        v2_worst = check_v2_kernels(device)
+        v2_rows = time_v2_kernels(device, peaks)
+        log(json.dumps({"v2_kernel_times": v2_rows}))
+    with Phase("v2 model"):
+        v2_result = check_model_warped(device, "v2", LAUNCHES_PER_FRAME)
+    with Phase("v2 bench"):
+        v2_record = run_checked_bench("v2", LAUNCHES_PER_FRAME)
+    with Phase("train v2"):
+        train_v2 = check_train(device, "v2")
+    with Phase("train v3"):
+        train_v3 = check_train(device, "v3")
 
     rows["dw_reduce"] = train_rows["dw_reduce"]
     rows["fused_conv4x4_s2"] = v3_rows["fused_conv4x4_s2"]
+    rows["conv3x3_s2"] = v2_rows["conv3x3_s2"]
     for key in ("f32", "bf16"):  # the largest error of each kernel
         for name in ("fused_conv3x3", "fused_conv3d"):
             worst[(name, key)] = max(worst[(name, key)],
                                      train_worst[(name, key)])
         worst[("fused_conv3x3", key)] = max(worst[("fused_conv3x3", key)],
-                                            v3_worst[("fused_conv3x3", key)])
+                                            v3_worst[("fused_conv3x3", key)],
+                                            v2_worst[("fused_conv3x3", key)])
         worst[("fused_conv4x4_s2", key)] = v3_worst[("fused_conv4x4_s2", key)]
-        worst[("dw_reduce", key)] = train_worst[("dw_reduce", key)]
-    dw_over_scale = {key: train_worst[("dw_reduce", key, "over scale")]
-                     for key in ("f32", "bf16")}
+        worst[("dw_reduce", key)] = max(train_worst[("dw_reduce", key)],
+                                        v2_worst[("dw_reduce", key)])
+        worst[("conv3x3_s2", key)] = v2_worst[("conv3x3_s2", key)]
+    over_scale = {
+        "dw_reduce": {key: max(train_worst[("dw_reduce", key, "over scale")],
+                               v2_worst[("dw_reduce", key, "over scale")])
+                      for key in ("f32", "bf16")},
+        "conv3x3_s2": {f"{part} {key}": v2_worst[("conv3x3_s2", key, part,
+                                                  "over scale")]
+                       for key in ("f32", "bf16") for part in ("y", "dx",
+                                                                "dW")}}
+    # the channel pairs later slices added to K1 and K4, timed at their
+    # largest launches
+    pairs = {"fused_conv3x3": {
+                 "3->32": v3_rows["fused_conv3x3 3->32"],
+                 "32->4": train_rows["fused_conv3x3 32->4"],
+                 "1->32": train_rows["fused_conv3x3 1->32"],
+                 "7->32": v2_rows["fused_conv3x3 7->32"],
+                 "32->7": v2_rows["fused_conv3x3 32->7"]},
+             "dw_reduce": {"3d": train_rows["dw_reduce 3D"],
+                           "7->32": v2_rows["dw_reduce 7->32"]}}
+    paths = {"train_run": train_result, "infer_frame": model_result,
+             "infer_frame_v2": v2_result, "infer_frame_v3": v3_result,
+             "train_run_v2": train_v2, "train_run_v3": train_v3}
     kernels = []
     for name, row in rows.items():
-        by_path = {"infer_frame": model_result["launches"].get(name, 0),
-                   "infer_frame_v3": v3_result["launches"].get(name, 0),
-                   "train_run": train_result["launches"].get(name, 0)}
+        by_path = {p: r["launches"].get(name, 0) for p, r in paths.items()}
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            # the count of the main path the kernel carries: the training
-            # run (train() over all its steps) where it runs there, else
-            # the v1 inference frame, else the v3 one
-            "launches": (by_path["train_run"] or by_path["infer_frame"]
-                         or by_path["infer_frame_v3"]),
+            # the count of the main path the kernel carries: the v1
+            # training run (train() over all its steps) where it runs
+            # there, else the first inference frame or training run that
+            # launches it; K7 is on no model path
+            "launches": next((n for n in by_path.values() if n), 0),
             "launches_by_path": by_path,
-            "launches_per_train_step":
-                train_result["launches_per_step"].get(name, 0),
+            "launches_per_train_step": {
+                m: r["launches_per_step"].get(name, 0)
+                for m, r in (("v1", train_result), ("v2", train_v2),
+                             ("v3", train_v3))},
             "max_abs_err": worst[(name, "bf16")],
             "max_abs_err_f32": worst[(name, "f32")],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
         })
-        if name == "dw_reduce":
-            kernels[-1]["max_err_over_scale"] = dw_over_scale
-            kernels[-1]["3d"] = train_rows["dw_reduce 3D"]
+        if name in over_scale:
+            kernels[-1]["max_err_over_scale"] = over_scale[name]
+        if name in pairs:
+            kernels[-1]["pairs"] = pairs[name]
+        if name == "conv3x3_s2":
+            kernels[-1]["note"] = ("on no model path: a backward over K1 "
+                                   "and K4, whose launches count as theirs")
+            kernels[-1]["device_ms"] = row["device_ms"]
     log(json.dumps({"kernels": kernels}))
+
+    def frame(record, result):
+        return {"frame_latency_ms": record["latency_ms"],
+                "fps": record["value"], **result}
+
+    def step(result):
+        return {"median": result["step_ms_median"],
+                "min": result["step_ms_min"]}
+
     log(json.dumps({"frame_latency_ms": record["latency_ms"],
                     "fps": record["value"],
                     "bf16_median_err_px": model_result["bf16_median_err_px"],
-                    "v3": {"frame_latency_ms": v3_record["latency_ms"],
-                           "fps": v3_record["value"],
-                           "kernel_times": v3_rows, **v3_result},
-                    "train_step_ms": {"median": train_result["step_ms_median"],
-                                      "min": train_result["step_ms_min"]},
-                    "train": train_result,
+                    "v2": frame(v2_record, v2_result),
+                    "v3": dict(frame(v3_record, v3_result),
+                               kernel_times=v3_rows),
+                    "train_step_ms": step(train_result),
+                    "train_step_ms_v2": step(train_v2),
+                    "train_step_ms_v3": step(train_v3),
+                    "train": train_result, "train_v2": train_v2,
+                    "train_v3": train_v3,
                     "autograd_err": {" ".join(k): v
                                      for k, v in grad_worst.items()},
                     "nvidia_smi": smi}))

@@ -1,13 +1,15 @@
 """Flagship benchmark of the port: MobileStereoNet at 1280x720 on one CUDA card.
 
-    python -m realtime_stereo_matcher_tpu_torch.bench [--model v1|v3] [--pairs 8] [--seed 0]
+    python -m realtime_stereo_matcher_tpu_torch.bench [--model v1|v2|v3] [--pairs 8] [--seed 0]
 
 Builds the model (v1 from ``configure/stereo_net_config.json``, the default;
-v3 from ``configure/stereo_net_config_v3.json``) with weights drawn from
+v2 and v3 from ``configure/stereo_net_config_v2.json`` and ``_v3.json``)
+with weights drawn from
 ``--seed``, answers ``--pairs`` random 720p stereo pairs (batch 1, eval mode)
 through the bf16 kernel path, and prints one JSON line:
 
-    {"metric": "mobile_stereo_net_720p_fps" (v3: "mobile_stereo_net_v3_720p_fps"),
+    {"metric": "mobile_stereo_net_720p_fps" (v2, v3: "mobile_stereo_net_v2_720p_fps",
+               "mobile_stereo_net_v3_720p_fps"),
      "value": <1000 / median ms>,
      "unit": "frames/s", "latency_ms": {"min": ..., "median": ...},
      "device": <card name>, "path": "kernel", "degraded": false, ...}
@@ -37,6 +39,8 @@ CONFIGURE = pathlib.Path(__file__).resolve().parent.parent / "configure"
 # per model: (repo config, metric name)
 MODELS = {"v1": (CONFIGURE / "stereo_net_config.json",
                  "mobile_stereo_net_720p_fps"),
+          "v2": (CONFIGURE / "stereo_net_config_v2.json",
+                 "mobile_stereo_net_v2_720p_fps"),
           "v3": (CONFIGURE / "stereo_net_config_v3.json",
                  "mobile_stereo_net_v3_720p_fps")}
 CONFIG = MODELS["v1"][0]
@@ -44,7 +48,7 @@ HW = (720, 1280)
 
 
 def model_config(model: str = "v1") -> dict:
-    """The ``model`` section of the repo config of ``model`` (v1 or v3)."""
+    """The ``model`` section of the repo config of ``model`` (v1, v2, v3)."""
     return json.loads(MODELS[model][0].read_text())["model"]
 
 

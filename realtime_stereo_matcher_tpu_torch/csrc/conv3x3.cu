@@ -8,7 +8,12 @@
 //       with BN-fold, ReLU / leaky / none, and a residual after the
 //       activation.  Training (kernels/train_conv.py, the port of K5
 //       flat_conv3x3) runs it for the forward and for dx, which adds the
-//       32 -> 4 and 1 -> 32 cases; the v3 U-Net's stem adds 3 -> 32.
+//       32 -> 4 and 1 -> 32 cases; the v3 U-Net's stem adds 3 -> 32; the
+//       v2 refine entry (disparity + left RGB + warped right RGB) adds
+//       7 -> 32, and its dx 32 -> 7.  The JAX kernel zero-pads any
+//       C_in <= 32 to 32; here each pair is an instantiation, and 7
+//       channels (14-byte bf16 pixels) take the scalar load and store path
+//       of conv_common.cuh.
 //   K2  realtime_stereo_matcher_tpu/kernels/conv3x3.py  fused_conv3x3_s2_flat
 //       (body _build_s2_kernel, launcher _conv_s2_call): the stride-2 3x3
 //       conv that halves H and W.
@@ -58,6 +63,8 @@ cudaError_t dispatch(const void* x, const void* w, const void* scale,
     RSM_CASE(32, 4)  // dx of the 4 -> 32 refine entry conv (training)
     RSM_CASE(1, 32)  // dx of the 32 -> 1 refine head (training)
     RSM_CASE(3, 32)  // the v3 U-Net's stem
+    RSM_CASE(7, 32)  // the v2 refine entry
+    RSM_CASE(32, 7)  // dx of the v2 refine entry (training)
   } else {
     RSM_CASE(32, 32)
     RSM_CASE(3, 32)

@@ -14,7 +14,10 @@
 //   _build_dw_kernel), the dW of the training conv flat_conv3x3, without the
 //   4-pixel lane fold and its unfold_weight_grad.  The 3D form computes the
 //   dW of flat_conv3d (kernels/train_conv3d.py), which the JAX package left
-//   to 18 XLA dots.
+//   to 18 XLA dots.  The channel pairs are those of the training convs:
+//   32 -> 32, the refine entries 4 -> 32 (v1) and 7 -> 32 (v2), the refine
+//   head 32 -> 1; 7 channels (14-byte bf16 pixels) are staged with scalar
+//   loads.
 //
 // Design.  The TPU kernel streamed the whole image through one core and kept
 // its sum in VMEM from one grid step to the next; blocks on Hopper run in
@@ -256,8 +259,9 @@ cudaError_t launch(const void* x, const void* g, float* work, float* out,
 }
 
 // The (KD, CI, CO) cases this file instantiates.
-#define RSM_DW_CASES(X) \
-  X(1, 32, 32) X(1, 4, 32) X(1, 32, 1) X(3, 32, 32) X(3, 32, 1)
+#define RSM_DW_CASES(X)                                           \
+  X(1, 32, 32) X(1, 4, 32) X(1, 7, 32) X(1, 32, 1) X(3, 32, 32) \
+  X(3, 32, 1)
 
 bool valid_args(int kd, int dil) {
   return kd == 1 ? (dil >= 1 && dil <= kMaxDil) : (kd == 3 && dil == 1);

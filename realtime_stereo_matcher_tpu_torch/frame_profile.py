@@ -1,11 +1,12 @@
 """Where the device time of a 720p frame, or of a training step, goes, by
 kernel.
 
-    python -m realtime_stereo_matcher_tpu_torch.frame_profile [--model v1|v3] [--frames 8]
-    python -m realtime_stereo_matcher_tpu_torch.frame_profile --train [--frames 4]
+    python -m realtime_stereo_matcher_tpu_torch.frame_profile [--model v1|v2|v3] [--frames 8]
+    python -m realtime_stereo_matcher_tpu_torch.frame_profile --train [--model v1|v2|v3] [--frames 4]
 
-Builds the model (v1 by default, or v3) as ``bench.py`` does, runs ``--frames`` frames of the bf16 kernel
-path under ``torch.profiler`` after two warm-up frames, and prints one JSON
+Builds the model (v1 by default, or v2 or v3) as ``bench.py`` does, runs
+``--frames`` frames of the bf16 kernel path under ``torch.profiler`` after
+two warm-up frames, and prints one JSON
 line: per group of device kernels (each hand-written kernel by its template
 shape, and the plain PyTorch ops by name) the device ms per frame and the
 launches per frame, plus the device busy share over the profiled span
@@ -13,9 +14,9 @@ launches per frame, plus the device busy share over the profiled span
 Kernels of one stream do not overlap, so the sum is the busy time.
 
 With ``--train`` the unit is one bf16 kernel-path training step of the
-reference config (``configure/stereo_net_config.json``: batch 4, 480 x 640
-seeded synthetic scenes, weights from the train-start init), after two
-warm-up steps.
+model's repo config and its train section (v1: batch 4, 480 x 640; v2 and
+v3: batch 8, 240 x 320; seeded synthetic scenes, weights from the
+train-start init), after two warm-up steps.
 """
 
 from __future__ import annotations
@@ -76,22 +77,24 @@ def _frame_fn(dev, seed, model="v1"):
     return lambda: forward(left, right)
 
 
-def _train_step_fn(dev, seed):
-    """One bf16 kernel-path training step of the reference config."""
-    cfg = load_config(bench.CONFIG)
+def _train_step_fn(dev, seed, model="v1"):
+    """One bf16 kernel-path training step of ``model``'s repo config."""
+    cfg = load_config(bench.MODELS[model][0])
     model, tx, _, state = create_train_state(cfg, seed=seed, device=dev)
     step = make_fast_train_step(model, tx, cfg.train.loss.parameters)
-    data = SyntheticBatches(cfg.train.batch_size, cfg.data.image_size,
-                            seed0=seed, max_disp=96.0, device=dev)
+    h, w = cfg.data.image_size
+    # scenes up to 96 px of disparity at 640 px wide, as wide at 320
+    data = SyntheticBatches(cfg.train.batch_size, (h, w), seed0=seed,
+                            max_disp=96.0 * w / 640, device=dev)
     batch = next(iter(data))[1:]
     return lambda: step(state, *batch)
 
 
-def profile_frames(frames: int = 8, seed: int = 0, train: bool = False,
-                   model: str = "v1") -> dict:
-    dev = torch.device("cuda", 0)
-    run = (_train_step_fn(dev, seed) if train
-           else _frame_fn(dev, seed, model))
+def profile_device(run, frames: int) -> dict:
+    """``run()`` ``frames`` times under ``torch.profiler`` after two
+    warm-up calls: device ms and launches per call by :func:`kernel_group`,
+    the device ms per call in all and the span from the first kernel's
+    start to the last one's end, per call."""
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -119,17 +122,26 @@ def profile_frames(frames: int = 8, seed: int = 0, train: bool = False,
         ends.append(evt.time_range.end)
     if not time_us:
         raise RuntimeError("the profiler recorded no device kernels")
-    busy = sum(time_us.values())
-    span = max(ends) - min(starts)
     groups = {g: {"ms_per_frame": t / 1e3 / frames,
                   "launches_per_frame": count[g] / frames}
               for g, t in time_us.most_common()}
+    return {"device_ms_per_frame": sum(time_us.values()) / 1e3 / frames,
+            "span_ms_per_frame": (max(ends) - min(starts)) / 1e3 / frames,
+            "groups": groups}
+
+
+def profile_frames(frames: int = 8, seed: int = 0, train: bool = False,
+                   model: str = "v1") -> dict:
+    dev = torch.device("cuda", 0)
+    run = (_train_step_fn if train else _frame_fn)(dev, seed, model)
+    prof = profile_device(run, frames)
     return {"unit": "train step" if train else "frame", "frames": frames,
-            "model": "v1" if train else model,
-            "device": torch.cuda.get_device_name(dev),
-            "device_ms_per_frame": busy / 1e3 / frames,
-            "span_ms_per_frame": span / 1e3 / frames,
-            "busy_share": busy / span, "groups": groups}
+            "model": model, "device": torch.cuda.get_device_name(dev),
+            "device_ms_per_frame": prof["device_ms_per_frame"],
+            "span_ms_per_frame": prof["span_ms_per_frame"],
+            "busy_share": (prof["device_ms_per_frame"]
+                           / prof["span_ms_per_frame"]),
+            "groups": prof["groups"]}
 
 
 def main(argv=None) -> int:
@@ -137,15 +149,13 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=8,
                     help="frames (or training steps) to profile")
     ap.add_argument("--train", action="store_true",
-                    help="profile bf16 kernel-path training steps (v1)")
+                    help="profile bf16 kernel-path training steps")
     ap.add_argument("--model", choices=sorted(bench.MODELS), default="v1",
-                    help="model of the inference frame")
+                    help="model of the frame or training step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("frame_profile: CUDA is not available", file=sys.stderr)
         return 1
-    if args.train and args.model != "v1":
-        ap.error("--train profiles v1 only")
     print(json.dumps(profile_frames(args.frames, train=args.train,
                                     model=args.model)))
     return 0

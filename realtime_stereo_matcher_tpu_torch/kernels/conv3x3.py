@@ -35,7 +35,7 @@ from realtime_stereo_matcher_tpu_torch.models.layers import tf_same_pad_k4s2
 
 # (C_in, C_out) pairs csrc/conv3x3.cu instantiates, by stride
 SUPPORTED_CHANNELS = {1: {(32, 32), (4, 32), (32, 1), (32, 4), (1, 32),
-                          (3, 32)},
+                          (3, 32), (7, 32), (32, 7)},
                       2: {(32, 32), (3, 32)}}
 KERNEL_NAMES = {1: "fused_conv3x3", 2: "fused_conv3x3_s2"}
 KERNEL_4X4 = "fused_conv4x4_s2"

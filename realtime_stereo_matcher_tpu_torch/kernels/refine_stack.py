@@ -1,18 +1,32 @@
-"""RefineNet cascade on the fused 3x3 kernel (port of the v1 and v3 branches
-of ``realtime_stereo_matcher_tpu/kernels/refine_stack.py``).
+"""RefineNet cascade on the fused 3x3 kernel (port of
+``realtime_stereo_matcher_tpu/kernels/refine_stack.py``).
 
 A v1 RefineNet is 14 fused 3x3 convs: the entry conv (disparity + RGB, 4 ->
 32), six dilated ResBlocks of two convs each (1, 2, 4, 8, 1, 1), and a head
 conv 32 -> 1 with bias.
 
-A v3 RefineNet's entry conv sees 65 channels, ``disp ‖ l_fmap ‖ warped
-r_fmap``.  It is split by input channel, conv(concat(d, l, r)) = conv_d(d) +
-conv_l(l) + conv_r(r), with the BatchNorm scale folded into each part (JAX
-refine_stack.py:139-156, :269-283): two fused 32 -> 32 convs, the second
-taking the BatchNorm bias and the first's output as its residual, plus the
-1-channel disparity tap as a plain 3x3 conv, then ReLU.  With the 13 convs
-after it that is 15 kernel launches.  The right features are warped with the
-banded warp (``ops.warp_by_flow_map_banded``) at the level's ``max_shift``.
+v2 and v3 RefineNets warp the right guidance by the upsampled disparity
+before the concat, with the banded warp (``ops.warp_by_flow_map_banded``) at
+the level's ``max_shift``.  A v2 entry sees ``disp ‖ left RGB ‖ warped right
+RGB``, 7 channels: one 7 -> 32 fused conv, 14 launches in all, as v1.
+
+The plan picks the entry by its input channels, as the JAX plan does
+(``entry_channels``): up to 32, one fused conv.  Wider, v3's 65 channels
+``disp ‖ l_fmap ‖ warped r_fmap``, it is split by input channel,
+conv(concat(d, l, r)) = conv_d(d) + conv_l(l) + conv_r(r), with the
+BatchNorm scale folded into each part (JAX refine_stack.py:139-156,
+:269-283): two fused 32 -> 32 convs, the second taking the BatchNorm bias
+and the first's output as its residual, plus the 1-channel disparity tap as
+a plain 3x3 conv, then ReLU.  With the 13 convs after it that is 15 kernel
+launches.
+
+The JAX package warps with two plain XLA functions: the static-shift
+``warp_by_flow_map_banded`` for guidance of <= 8 channels at ``max_shift``
+<= 64 (v2's coarse level) and the selection-matrix
+``warp_by_flow_map_matmul_banded`` for the others, both chosen for the
+TPU's cost model and both zero outside tap offsets ``[-1, max_shift + 1]``.
+The port's one gather-based banded warp has that contract and serves every
+level of v2 and v3.
 
 Weights are folded once, when the plan is built.
 
@@ -58,7 +72,8 @@ class SplitEntry:
 
 @dataclasses.dataclass(frozen=True)
 class RefinePlan:
-    """The folded conv stack of one RefineNet (v3: after its split entry)."""
+    """The folded conv stack of one RefineNet (after its split entry where
+    the entry is wider than 32 channels)."""
 
     specs: tuple  # tuple[ConvSpec, ...]
     entry: SplitEntry | None = None
@@ -88,11 +103,12 @@ def _split_entry(convbn, dtype) -> SplitEntry:
 def build_refine_plan(refine, *, dtype=torch.bfloat16) -> RefinePlan:
     """Fold a port ``RefineNet`` (``conv0``: ConvBN, ResBlocks, head conv)
     into a kernel plan.  ``res_from`` points each ResBlock's second conv at
-    the block's input in the activation history.  A ``warp_guidance``
-    RefineNet (v3) gets the split entry instead of an entry spec."""
+    the block's input in the activation history.  An entry conv wider than
+    32 input channels (v3's 65) gets the split entry instead of an entry
+    spec."""
     seq = refine.conv0
     entry, specs = None, []
-    if refine.warp_guidance:
+    if seq[0][0].in_channels > 32:
         entry = _split_entry(seq[0], dtype)
     else:
         specs.append(convbn_spec(seq[0], dtype=dtype))
@@ -114,45 +130,39 @@ def run_refine_stack(x: torch.Tensor, specs: Sequence[ConvSpec]) -> torch.Tensor
     return history[-1]
 
 
-def _upsample(disp, l_guide):
-    """2x-upsample the float32 disparity; the guide to its size."""
+def refine_inputs(disp, l_guide, r_guide, max_shift, dtype):
+    """A RefineNet's inputs: the float32 disparity 2x-upsampled, and the
+    guides at its size in ``dtype``, the right one (if any) warped by it
+    with the banded warp at ``max_shift``.  Returns (disp, [guides])."""
     h2, w2 = disp.shape[1] * 2, disp.shape[2] * 2
     disp = resize_bilinear(disp.float(), (h2, w2)) * 2.0
-    if l_guide.shape[1:3] != (h2, w2):
-        l_guide = resize_bilinear(l_guide, (h2, w2))
-    return disp, l_guide
+    guides = [l_guide] if r_guide is None else [l_guide, r_guide]
+    guides = [(g if g.shape[1:3] == (h2, w2)
+               else resize_bilinear(g, (h2, w2))).to(dtype) for g in guides]
+    if r_guide is not None:
+        guides[1] = warp_by_flow_map_banded(guides[1], disp, max_shift)
+    return disp, guides
 
 
-def fast_refine(disp: torch.Tensor, l_guide: torch.Tensor,
-                plan: RefinePlan) -> torch.Tensor:
-    """Kernel-path RefineNet (v1, no warped guidance): 2x-upsample the
-    disparity, concat the left guide, run the conv stack, ReLU-add.
+def fast_refine(disp: torch.Tensor, l_guide: torch.Tensor, plan: RefinePlan,
+                r_guide: torch.Tensor | None = None,
+                max_shift: int | None = None) -> torch.Tensor:
+    """Kernel-path RefineNet: :func:`refine_inputs` (with the right guide
+    where one is given: v2, v3), then the entry and the conv stack,
+    ReLU-add.
 
-    ``disp`` (B, h, w, 1) float32, ``l_guide`` (B, H, W, 3); returns
-    (B, 2h, 2w, 1) float32."""
-    disp, l_guide = _upsample(disp, l_guide)
-    x = torch.cat([disp.to(plan.dtype), l_guide.to(plan.dtype)], dim=-1)
-    delta = run_refine_stack(x.contiguous(), plan.specs)
-    return torch.relu(disp + delta.float())
-
-
-def fast_refine_warped(disp: torch.Tensor, l_fmap: torch.Tensor,
-                       r_fmap: torch.Tensor, plan: RefinePlan,
-                       max_shift: int) -> torch.Tensor:
-    """Kernel-path RefineNet with warped guidance (v3): 2x-upsample the
-    disparity, warp the right features by it (banded at ``max_shift``), run
-    the split entry and the conv stack, ReLU-add.
-
-    ``disp`` (B, h, w, 1) float32, ``l_fmap`` / ``r_fmap`` (B, 2h, 2w, 32)
-    in the plan's dtype; returns (B, 2h, 2w, 1) float32."""
+    ``disp`` (B, h, w, 1) float32; ``l_guide`` and ``r_guide`` (B, H, W, C)
+    (RGB for v1 and v2, 32-channel features for v3); returns (B, 2h, 2w, 1)
+    float32."""
+    disp, guides = refine_inputs(disp, l_guide, r_guide, max_shift,
+                                 plan.dtype)
     e = plan.entry
-    disp, l_fmap = _upsample(disp, l_fmap)
-    if r_fmap.shape[1:3] != l_fmap.shape[1:3]:
-        r_fmap = resize_bilinear(r_fmap, l_fmap.shape[1:3])
-    warped = warp_by_flow_map_banded(r_fmap.to(plan.dtype), disp, max_shift)
-    p1 = run_conv(l_fmap.to(plan.dtype).contiguous(), e.left)
-    p2 = run_conv(warped.contiguous(), e.right, residual=p1)
-    d = F.conv2d(disp.permute(0, 3, 1, 2), e.w_d, padding=1)
-    x = torch.relu(p2.float() + d.permute(0, 2, 3, 1)).to(plan.dtype)
+    if e is None:
+        x = torch.cat([disp.to(plan.dtype), *guides], dim=-1)
+    else:
+        p1 = run_conv(guides[0].contiguous(), e.left)
+        p2 = run_conv(guides[1].contiguous(), e.right, residual=p1)
+        d = F.conv2d(disp.permute(0, 3, 1, 2), e.w_d, padding=1)
+        x = torch.relu(p2.float() + d.permute(0, 2, 3, 1)).to(plan.dtype)
     delta = run_refine_stack(x.contiguous(), plan.specs)
     return torch.relu(disp + delta.float())

@@ -16,6 +16,14 @@ kernels K4 ``dw_reduce`` and K5 ``flat_conv3x3`` of
   epilogue) whose forward is K1 with an identity epilogue, whose dx is K1 on
   the cotangent with the weights rotated 180 degrees and channel-transposed
   (the adjoint of a SAME conv is a SAME conv), and whose dW is K4.
+* :func:`conv3x3_s2` -- the TPU kernel K7 ``conv3x3_s2``: a stride-2 3x3
+  conv (torch padding 1) whose forward is plain ``F.conv2d``, as the JAX
+  forward is plain XLA, and whose backward runs on the zero-upsampled
+  cotangent ``u[:, 2i, 2j] = g[:, i, j]``: dx is K1 at stride 1 on ``u``
+  with the rotated, channel-transposed weights, dW is K4 of ``(x, u)``.
+  No model path calls it: in the JAX package it lost to XLA's own stride-2
+  backward (JAX models/fast_train.py:247-250), and the encoders here keep
+  cuDNN as the JAX encoder keeps XLA.
 
 The JAX package ran these on its lane-folded flat layout (4 pixels x 32
 channels per 128 lanes, pixel phases, zero gap rows between images); none of
@@ -26,13 +34,14 @@ HWIO weights of any float type; the conv runs in the activation's type.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from realtime_stereo_matcher_tpu_torch.kernels import _build
 from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import fused_conv3x3
 
 KERNEL_NAME = "dw_reduce"
 # (C_in, C_out) pairs csrc/dw_reduce.cu instantiates, by depth taps (1: 2D)
-SUPPORTED_CHANNELS = {1: {(32, 32), (4, 32), (32, 1)},
+SUPPORTED_CHANNELS = {1: {(32, 32), (4, 32), (7, 32), (32, 1)},
                       3: {(32, 32), (32, 1)}}
 MAX_DILATION = 8  # the kernel stages a halo of 8 columns
 
@@ -171,3 +180,42 @@ def flat_conv3x3(x: torch.Tensor, w: torch.Tensor, dilation: int = 1):
     to w's dtype."""
     return _FlatConv3x3.apply(x, w, dilation)
 
+
+
+S2_CHANNELS = (32, 32)  # the (C_in, C_out) conv3x3_s2 supports
+
+
+class _Conv3x3S2(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        x = x.contiguous()
+        ctx.save_for_backward(x, w)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
+                     stride=2, padding=1)
+        return y.permute(0, 2, 3, 1).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        u = g.new_zeros((*x.shape[:3], g.shape[-1]))
+        u[:, ::2, ::2] = g
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _conv_nhwc(u, w.flip((0, 1)).transpose(2, 3), 1)
+        if ctx.needs_input_grad[1]:
+            dw = dw_reduce(x, u, 1).to(w.dtype)
+        return dx, dw
+
+
+def conv3x3_s2(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Differentiable stride-2 3x3 conv (torch padding 1) on NHWC ``x``
+    (H and W even) with HWIO weights ``w``: (B, H, W, 32) -> (B, H/2, W/2,
+    32) in x's dtype; forward plain, dx on K1, dW on K4 (float32, cast to
+    w's dtype).  Other channel pairs and odd sizes raise."""
+    if x.ndim != 4 or w.shape != (3, 3, *S2_CHANNELS) or \
+            x.shape[-1] != S2_CHANNELS[0] or x.shape[1] % 2 or x.shape[2] % 2:
+        raise ValueError(
+            f"conv3x3_s2 supports {S2_CHANNELS[0]} -> {S2_CHANNELS[1]} "
+            f"channels on even H and W, not x {tuple(x.shape)}, w "
+            f"{tuple(w.shape)}; other shapes are not ported (ROADMAP.md)")
+    return _Conv3x3S2.apply(x, w)

@@ -2,8 +2,8 @@
 
 ``build_model`` takes the reference config schema
 ``{"type": <name>, "parameters": {...}}`` with the same type strings as the
-JAX package.  MobileStereoNet v1 and v3 are ported so far; the other types
-are queued in ROADMAP.md.
+JAX package.  MobileStereoNet v1, v2 and v3 are ported so far; the other
+types are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -14,14 +14,15 @@ from realtime_stereo_matcher_tpu_torch import resolve_device
 from realtime_stereo_matcher_tpu_torch.models.layers import init_parameters
 from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
     MobileStereoNet,
+    MobileStereoNetV2,
     MobileStereoNetV3,
 )
 
 _PORTED = {"MobileStereoNet": MobileStereoNet,
+           "MobileStereoNetV2": MobileStereoNetV2,
            "MobileStereoNetV3": MobileStereoNetV3}
 # types the JAX package builds that the port does not have yet
-_QUEUED = ("MobileStereoNetV2", "MobileStereoNetV4", "MobileDispNetC",
-           "OpenCVSGBMModule")
+_QUEUED = ("MobileStereoNetV4", "MobileDispNetC", "OpenCVSGBMModule")
 
 
 def build_model(model_config: dict, *, device="cuda",
@@ -47,4 +48,5 @@ def build_model(model_config: dict, *, device="cuda",
     return model.to(dev).eval()
 
 
-__all__ = ["MobileStereoNet", "MobileStereoNetV3", "build_model"]
+__all__ = ["MobileStereoNet", "MobileStereoNetV2", "MobileStereoNetV3",
+           "build_model"]

@@ -1,10 +1,11 @@
-"""JAX variables -> torch state dict for MobileStereoNet v1 and v3.
+"""JAX variables -> torch state dict for MobileStereoNet v1, v2 and v3.
 
-The inverse of the JAX package's ``import_torch_state_dict`` for v1 and v3
-(``realtime_stereo_matcher_tpu/models/torch_import.py``, ``_map_v1v2`` and
-``_map_v3``): it takes the Flax ``{"params", "batch_stats"}`` tree as nested
-dicts of numpy arrays and returns a state dict that the port's
-``MobileStereoNet`` / ``MobileStereoNetV3`` ``load_state_dict`` accepts, so
+The inverse of the JAX package's ``import_torch_state_dict`` for v1, v2 and
+v3 (``realtime_stereo_matcher_tpu/models/torch_import.py``, ``_map_v1v2``
+and ``_map_v3``): it takes the Flax ``{"params", "batch_stats"}`` tree as
+nested dicts of numpy arrays and returns a state dict that the port's
+``MobileStereoNet`` / ``MobileStereoNetV2`` / ``MobileStereoNetV3``
+``load_state_dict`` accepts, so
 weights initialised or trained by the JAX package run in the port.  This
 module reads only the array tree; it imports nothing of JAX.
 
@@ -132,9 +133,10 @@ def _unet(e: _Exporter):
 
 
 def from_jax_variables(variables: Mapping) -> dict[str, torch.Tensor]:
-    """Flax MobileStereoNet v1 or v3 variables -> port ``state_dict``;
+    """Flax MobileStereoNet v1, v2 or v3 variables -> port ``state_dict``;
     without ``batch_stats``, a parameter (or gradient) tree -> the port's
-    parameters by name."""
+    parameters by name.  v1 and v2 share one layout (v2's refine entry
+    kernel is (3, 3, 7, 32) where v1's is (3, 3, 4, 32))."""
     e = _Exporter(variables)
     if "UNetFeatureExtractor_0" in e.params:  # v3
         _unet(e)

@@ -1,18 +1,20 @@
-"""Kernel-path inference for MobileStereoNet v1 and v3 (port of
+"""Kernel-path inference for MobileStereoNet v1, v2 and v3 (port of
 ``realtime_stereo_matcher_tpu/models/fast_infer.py``).
 
 ``make_fast_forward(model)`` returns ``forward(left, right) -> [negative
 disparity maps]`` that computes ``model(left, right)`` (eval mode) with every
 3x3, 4x4 and 3x3x3 convolution on the hand-written kernels.  Per frame:
 
-* v1: 56 stride-1 3x3 launches (7 per view in the encoder, 14 per
-  RefineNet), 6 stride-2 3x3 launches (3 per view) and 5 3x3x3 launches
-  (the cost filter);
+* v1 and v2: 56 stride-1 3x3 launches (7 per view in the encoder, 14 per
+  RefineNet; v2's three 7 -> 32 refine entries among them), 6 stride-2 3x3
+  launches (3 per view) and 5 3x3x3 launches (the cost filter);
 * v3: 69 stride-1 3x3 launches (12 per view in the U-Net, 15 per
   RefineNet), 6 4x4 stride-2 launches (3 per view) and 5 3x3x3 launches.
-  Its refinements warp the right features with the banded warp at
-  ``refine_max_shifts`` (the kernel path of the JAX package does the same;
-  ``model(..., banded_warp=True)`` is the plain path with that warp).
+
+v2's refinements warp the right RGB, v3's the right features, by the
+disparity with the banded warp at ``refine_max_shifts`` (the kernel path
+of the JAX package does the same; ``model(..., banded_warp=True)`` is the
+plain path with that warp).
 
 Normalization, the cost volume, soft-argmin, the resizes, the warp and v3's
 up-projections and 1x1 skip mixes are plain PyTorch, as they were plain XLA
@@ -38,7 +40,6 @@ from realtime_stereo_matcher_tpu_torch.kernels.encoder import (
 from realtime_stereo_matcher_tpu_torch.kernels.refine_stack import (
     build_refine_plan,
     fast_refine,
-    fast_refine_warped,
 )
 from realtime_stereo_matcher_tpu_torch.kernels.unet import (
     build_unet_plan,
@@ -47,6 +48,7 @@ from realtime_stereo_matcher_tpu_torch.kernels.unet import (
 from realtime_stereo_matcher_tpu_torch.models.layers import normalize_images
 from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
     MobileStereoNet,
+    MobileStereoNetV2,
     MobileStereoNetV3,
     _coarse_disparity,
     _full_res_nearest,
@@ -56,18 +58,19 @@ from realtime_stereo_matcher_tpu_torch.ops import pad_to_multiple
 
 
 def make_fast_forward(model, *, dtype=torch.bfloat16):
-    """Build the kernel-path forward of a v1 or v3 model (batch any, eval
-    mode).
+    """Build the kernel-path forward of a v1, v2 or v3 model (batch any,
+    eval mode).
 
     The returned function takes NHWC uint8-range images on the model's
     device and returns 3 (B, H, W, 1) float32 negative disparity maps,
     coarse to fine."""
     if type(model) is MobileStereoNetV3:
         return _make_fast_forward_v3(model, dtype)
-    if type(model) is not MobileStereoNet:
+    if type(model) not in (MobileStereoNet, MobileStereoNetV2):
         raise NotImplementedError(
-            f"the kernel path supports MobileStereoNet v1 and v3, not "
+            f"the kernel path supports MobileStereoNet v1, v2 and v3, not "
             f"{type(model).__name__}; see ROADMAP.md")
+    warp = type(model) is MobileStereoNetV2
     down = model.down_factor
     align = 2 ** down
     vol_disp = (model.max_disp + 1) // align
@@ -75,6 +78,7 @@ def make_fast_forward(model, *, dtype=torch.bfloat16):
     cf_plan = build_cost_filter_plan(model.cost_filter, dtype=dtype)
     refine_plans = [build_refine_plan(r, dtype=dtype)
                     for r in model.refine_layer]
+    shifts = refine_max_shifts(model.max_disp, down)
 
     @torch.no_grad()
     def forward(left_img, right_img):
@@ -86,8 +90,9 @@ def make_fast_forward(model, *, dtype=torch.bfloat16):
                               lambda vol: fast_cost_filter(vol, cf_plan))
         multi_scale = []
         out_hw = left.shape[1:3]
-        for plan in refine_plans:
-            x = fast_refine(x, left, plan)
+        r_guide = right if warp else None
+        for plan, shift in zip(refine_plans, shifts):
+            x = fast_refine(x, left, plan, r_guide, shift)
             multi_scale.append(_full_res_nearest(x, out_hw, orig_hw))
         return [-1.0 * m for m in multi_scale]
 
@@ -115,8 +120,7 @@ def _make_fast_forward_v3(model: MobileStereoNetV3, dtype):
         multi_scale = []
         out_hw = left.shape[1:3]
         for i, plan in enumerate(refine_plans):
-            x = fast_refine_warped(x, l_py[i + 1], r_py[i + 1], plan,
-                                   shifts[i])
+            x = fast_refine(x, l_py[i + 1], plan, r_py[i + 1], shifts[i])
             multi_scale.append(_full_res_nearest(x, out_hw, orig_hw))
         return [-1.0 * m for m in multi_scale]
 

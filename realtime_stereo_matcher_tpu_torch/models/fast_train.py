@@ -1,4 +1,4 @@
-"""Kernel-path training for MobileStereoNet v1 (port of
+"""Kernel-path training for MobileStereoNet v1, v2 and v3 (port of
 ``realtime_stereo_matcher_tpu/models/fast_train.py``).
 
 ``make_fast_train_step(model, tx, loss_params)`` is a drop-in replacement for
@@ -7,11 +7,18 @@ ResBlocks and the RefineNets runs on the differentiable
 :func:`~realtime_stereo_matcher_tpu_torch.kernels.train_conv.flat_conv3x3`
 (forward and dx on K1, dW on K4) and the five cost-filter convs on
 :func:`~realtime_stereo_matcher_tpu_torch.kernels.train_conv3d.flat_conv3d`
-(K3, and K4's 3D form).  The encoder's stride-2 convs and head stay plain
-``F.conv2d``, as the JAX package kept them in XLA.  BatchNorm, ReLU, the
-cost volume, soft-argmin and the resizes are plain PyTorch between kernels.
-Per bf16 step at the reference config that is 108 K1 launches (54 forward,
-54 dx), 10 K3 and 59 K4 (54 in 2D, 5 in 3D).
+(K3, and K4's 3D form).  As in the JAX package, the rest stays plain:
+
+* the encoder's stride-2 convs and head (v1, v2);
+* v3's U-Net extractor, the model's own forward, called once per view (it
+  has no BatchNorm);
+* v3's 65-channel refine entry conv;
+* BatchNorm, ReLU, the cost volume, soft-argmin, the resizes and the warp.
+
+Launches per bf16 step: v1 and v2 108 K1 (54 forward, 54 dx; v2's three
+7 -> 32 entries and their 32 -> 7 dx among them), 10 K3 and 59 K4 (54 in
+2D, 5 in 3D); v3 78 K1 (39 forward, 39 dx), 10 K3 and 44 K4 (39 in 2D, 5 in
+3D).
 
 Semantics match the plain model in train mode (and the Flax model):
 
@@ -20,9 +27,17 @@ Semantics match the plain model in train mode (and the Flax model):
   momentum 0.9) and *sequential* running-stat threading where one module is
   applied twice (the encoder on left, then right);
 * the epilogue order of the JAX package's ``_bn_relu_mask``: statistics in
-  float32 from the conv output, then ``y * scale + bias`` in the compute
-  dtype, ReLU, then the residual add;
-* the disparity stays float32 across the refinements.
+  float32 from the conv output, then ``y * scale + bias``, ReLU, then the
+  residual add.  The affine runs in float32 and is rounded once to the
+  compute dtype; the JAX package runs it in the compute dtype, where in
+  bf16 ``y * scale`` and the folded bias ``-mean * scale`` cancel to a few
+  bits wherever a channel's mean is large against its spread (v3's refine
+  entries).  float32 is unaffected;
+* the disparity stays float32 across the refinements, and so does the
+  warp's flow, which keeps its gradient: v2 and v3 refinements warp the
+  right guidance with the banded warp (``ops.warp_by_flow_map_banded``) at
+  the level's ``max_shift``, as the JAX kernel path does; within the band
+  that is the plain model's warp.
 
 The TPU layout (lane fold, pixel phases, halo masks) is not carried over, so
 BatchNorm needs no mask.  The running stats come back as a new dict keyed by
@@ -35,6 +50,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from realtime_stereo_matcher_tpu_torch.kernels.refine_stack import refine_inputs
 from realtime_stereo_matcher_tpu_torch.kernels.train_conv import (
     MAX_DILATION,
     flat_conv3x3,
@@ -47,14 +63,18 @@ from realtime_stereo_matcher_tpu_torch.models.layers import (
 )
 from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
     MobileStereoNet,
+    MobileStereoNetV2,
+    MobileStereoNetV3,
     _full_res_nearest,
+    refine_max_shifts,
 )
 from realtime_stereo_matcher_tpu_torch.ops import (
     difference_cost_volume,
     pad_to_multiple,
-    resize_bilinear,
     soft_argmin,
 )
+
+_VARIANTS = (MobileStereoNet, MobileStereoNetV2, MobileStereoNetV3)
 
 
 def _hwio(w: torch.Tensor) -> torch.Tensor:
@@ -78,8 +98,9 @@ def running_stats(model: torch.nn.Module) -> dict[str, torch.Tensor]:
 
 def _bn_relu(y, bn, key, stats, *, train, dtype):
     """flax BatchNorm + ReLU on a channels-last conv output, in the JAX
-    package's kernel-path epilogue order; train mode writes the updated
-    running stats of ``key`` (a state-dict prefix) into ``stats``."""
+    package's kernel-path epilogue order, the affine in float32 and the
+    result in ``dtype``; train mode writes the updated running stats of
+    ``key`` (a state-dict prefix) into ``stats``."""
     if train:
         mu, var = batch_stats(y, tuple(range(y.ndim - 1)))
         stats[f"{key}.running_mean"] = running_update(
@@ -90,7 +111,9 @@ def _bn_relu(y, bn, key, stats, *, train, dtype):
         mu, var = stats[f"{key}.running_mean"], stats[f"{key}.running_var"]
     scale = bn.weight.float() * torch.rsqrt(var + bn.eps)
     bias = bn.bias.float() - mu * scale
-    return torch.relu(y.to(dtype) * scale.to(dtype) + bias.to(dtype))
+    # rounded to ``dtype`` before the ReLU, which commutes with rounding:
+    # the ReLU and its backward then move ``dtype``, not float32
+    return torch.relu(torch.addcmul(bias, y, scale).to(dtype))
 
 
 def encoder_train(enc, x, stats, prefix="feature_extractor", *, train=True,
@@ -127,17 +150,19 @@ def cost_filter_train(cf, vol, stats, prefix="cost_filter", *, train=True,
     return flat_conv3d(x, _hwio(head.weight))[..., 0].float() + head.bias.float()
 
 
-def refine_net_train(rn, disp, l_guide, stats, prefix, *, train=True,
-                     dtype=torch.float32):
-    """RefineNet (v1, no warp) on the kernels: (B, h, w, 1) float32
-    disparity and the (B, H, W, 3) guide -> (B, 2h, 2w, 1) float32."""
-    h2, w2 = disp.shape[1] * 2, disp.shape[2] * 2
-    disp = resize_bilinear(disp.float(), (h2, w2)) * 2.0
-    if l_guide.shape[1:3] != (h2, w2):
-        l_guide = resize_bilinear(l_guide, (h2, w2))
-    x = torch.cat([disp.to(dtype), l_guide.to(dtype)], dim=-1)
+def refine_net_train(rn, disp, l_guide, stats, prefix, r_guide=None,
+                     max_shift=None, *, train=True, dtype=torch.float32):
+    """RefineNet on the kernels: (B, h, w, 1) float32 disparity and the
+    (B, H, W, C) guides -> (B, 2h, 2w, 1) float32.  With ``r_guide`` (v2,
+    v3) the right guide is warped by the upsampled disparity, banded at
+    ``max_shift``.  An entry conv wider than 32 channels (v3's 65) stays
+    plain, as in the JAX package; the others run on the kernels."""
+    disp, guides = refine_inputs(disp, l_guide, r_guide, max_shift, dtype)
+    x = torch.cat([disp.to(dtype), *guides], dim=-1)
     seq = rn.conv0
-    x = flat_conv3x3(x, _hwio(seq[0][0].weight))
+    entry = seq[0][0]
+    x = (_conv2d_nhwc(x, entry.weight.to(dtype)) if entry.in_channels > 32
+         else flat_conv3x3(x, _hwio(entry.weight)))
     x = _bn_relu(x, seq[0][1], f"{prefix}.conv0.0.1", stats, train=train,
                  dtype=dtype)
     for b, block in enumerate(list(seq)[1:-1], start=1):
@@ -152,34 +177,51 @@ def refine_net_train(rn, disp, l_guide, stats, prefix, *, train=True,
     return torch.relu(disp + delta)
 
 
-def fast_train_forward(model: MobileStereoNet, left_img, right_img, *,
-                       train: bool = True, dtype=torch.float32):
-    """Full v1 forward on the kernel path.
+def fast_train_forward(model, left_img, right_img, *, train: bool = True,
+                       dtype=torch.float32):
+    """Full v1, v2 or v3 forward on the kernel path.
 
     Returns (multi-scale negative disparities, coarse to fine, float32;
     new running stats by state-dict name) -- the contract of the JAX
     package's ``fast_train_forward``.  The model is not modified."""
-    if type(model) is not MobileStereoNet:
+    if type(model) not in _VARIANTS:
         raise NotImplementedError(
-            f"the kernel train path supports MobileStereoNet v1, not "
-            f"{type(model).__name__}; see ROADMAP.md")
-    align = 2 ** model.down_factor
+            f"the kernel train path supports MobileStereoNet v1, v2 and v3, "
+            f"not {type(model).__name__}; see ROADMAP.md")
+    down = model.down_factor
+    align = 2 ** down
     vol_disp = (model.max_disp + 1) // align
     stats = running_stats(model)
     kw = dict(train=train, dtype=dtype)
 
     left, orig_hw = pad_to_multiple(normalize_images(left_img, dtype), align)
     right, _ = pad_to_multiple(normalize_images(right_img, dtype), align)
-    lf = encoder_train(model.feature_extractor, left, stats, **kw)
-    rf = encoder_train(model.feature_extractor, right, stats, **kw)
+    if type(model) is MobileStereoNetV3:
+        # the U-Net's own plain forward in the path's dtype, once per view
+        with torch.autocast(left.device.type, dtype=dtype,
+                            enabled=dtype != torch.float32):
+            l_py = model.feature_extractor(left)
+            r_py = model.feature_extractor(right)
+        lf, rf = l_py[0].to(dtype), r_py[0].to(dtype)
+        guides = list(zip(l_py[1:], r_py[1:]))
+        refines, name = model.refine_layers, "refine_layers"
+    else:
+        lf = encoder_train(model.feature_extractor, left, stats, **kw)
+        rf = encoder_train(model.feature_extractor, right, stats, **kw)
+        warp = type(model) is MobileStereoNetV2
+        guides = [(left, right if warp else None)] * down
+        refines, name = model.refine_layer, "refine_layer"
     vol = difference_cost_volume(lf, rf, vol_disp)
     cost = cost_filter_train(model.cost_filter, vol, stats, **kw)
     x = soft_argmin(cost, axis=1)[..., None]
 
     multi_scale = []
     out_hw = left.shape[1:3]
-    for r, rn in enumerate(model.refine_layer):
-        x = refine_net_train(rn, x, left, stats, f"refine_layer.{r}", **kw)
+    shifts = refine_max_shifts(model.max_disp, down)
+    for r, rn in enumerate(refines):
+        l_guide, r_guide = guides[r]
+        x = refine_net_train(rn, x, l_guide, stats, f"{name}.{r}", r_guide,
+                             shifts[r], **kw)
         multi_scale.append(_full_res_nearest(x, out_hw, orig_hw))
     return [-1.0 * m for m in multi_scale], stats
 
@@ -224,10 +266,12 @@ def make_fast_train_step(model, tx, loss_params: dict,
 
 
 def fast_step_supported(model, exp_config) -> bool:
-    """Whether the kernel train path applies: a v1 model whose convs are the
-    kernels' channel pairs (hidden width 32) and dilations (1 to 8), and a
-    crop size in the config."""
-    if type(model) is not MobileStereoNet or model.hidden_dim != 32:
+    """Whether the kernel train path applies: a v1, v2 or v3 model whose
+    convs are the kernels' channel pairs (hidden width 32) and dilations
+    (1 to 8), and a crop size in the config.  (The JAX package's rule that
+    every refine level's width be a multiple of its 4-pixel lane fold is
+    the TPU's, not the kernels'.)"""
+    if type(model) not in _VARIANTS or model.hidden_dim != 32:
         return False
     if not all(1 <= d <= MAX_DILATION for d in model.refine_dilates):
         return False

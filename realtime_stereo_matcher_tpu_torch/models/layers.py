@@ -1,4 +1,4 @@
-"""Building blocks of the v1 and v3 models (port of ``realtime_stereo_matcher_tpu/models/layers.py``).
+"""Building blocks of the v1, v2 and v3 models (port of ``realtime_stereo_matcher_tpu/models/layers.py``).
 
 The modules are plain ``nn.Sequential`` stacks laid out as in the reference
 torch model, so their state-dict keys are the reference's

@@ -1,20 +1,22 @@
-"""MobileStereoNet v1 and v3, plain PyTorch (port of ``realtime_stereo_matcher_tpu/models/stereo_net.py``).
+"""MobileStereoNet v1, v2 and v3, plain PyTorch (port of ``realtime_stereo_matcher_tpu/models/stereo_net.py``).
 
 * v1 (reference model/mobile_stereo_net.py:90-158): a fixed 32-dim encoder
   at 1/8 resolution, a 24-level difference cost volume, a 5-layer 3D-conv
   filter, soft-argmin, and 3 cascaded RGB-guided 2x refinements.
+* v2 (reference model/mobile_stereo_net_v2.py:137-232): v1 whose
+  refinements also see the right RGB warped by the current disparity.
 * v3 (reference model/mobile_stereo_net_v3.py:249-336): a U-Net feature
   pyramid instead of the encoder; refinement i sees pyramid level i + 1 of
   the left view and of the right view warped by the current disparity.
 
-Both return a coarse-to-fine list of full-resolution **negative** disparity
+Each returns a coarse-to-fine list of full-resolution **negative** disparity
 maps (B, H, W, 1).
 
 This is the plain path: torch convolutions throughout.  It runs on the CPU
 and is the reference that the kernel path (``models/fast_infer.py``) is held
 against on the card.  Module attribute names follow the reference torch
 model, so ``state_dict()`` keys are the reference's (``feature_extractor.*``,
-``cost_filter.*``, ``refine_layer.{r}.conv0.*`` for v1 and
+``cost_filter.*``, ``refine_layer.{r}.conv0.*`` for v1 and v2 and
 ``refine_layers.{r}.conv0.*`` for v3).
 """
 
@@ -92,9 +94,10 @@ class RefineNet(nn.Module):
     _v3.py:100-143): upsample disp 2x, concat the guidance, predict a
     residual, ReLU.
 
-    ``warp_guidance=True`` (v3) warps the right guidance by the upsampled
+    ``warp_guidance=True`` (v2, v3) warps the right guidance by the upsampled
     disparity before the concat; the entry conv then sees ``disp ‖ l_guide ‖
-    warped r_guide`` (``in_ch`` = 1 + 2 x 32 = 65 in v3)."""
+    warped r_guide`` (``in_ch`` = 1 + 3 + 3 = 7 in v2, whose guides are the
+    RGB images, and 1 + 2 x 32 = 65 in v3)."""
 
     def __init__(self, in_ch: int = 4, hidden_dim: int = 32,
                  dilations: Sequence[int] = (1, 2, 4, 8, 1, 1),
@@ -257,6 +260,54 @@ class MobileStereoNet(nn.Module):
         out_hw = left.shape[1:3]
         for refine in self.refine_layer:
             x = refine(x, left)
+            multi_scale.append(_full_res_nearest(x, out_hw, orig_hw))
+        return [-1.0 * m for m in multi_scale]
+
+
+class MobileStereoNetV2(nn.Module):
+    """v2 -- reference model/mobile_stereo_net_v2.py:137-232: v1 whose
+    refinement i also sees the right RGB warped by the current disparity
+    (``refine_dim`` = 1 disparity + 3 left RGB + 3 warped right RGB input
+    channels).
+
+    forward: (left, right) uint8-range NHWC -> [3 x (B, H, W, 1)] negative
+    disparity, coarse to fine.  ``banded_warp=True`` warps with the kernel
+    path's band (:func:`refine_max_shifts`) instead of at any disparity."""
+
+    def __init__(self, down_factor: int = 3, max_disp: int = 192,
+                 refine_dim: int = 7,
+                 refine_dilates: Sequence[int] = (1, 2, 4, 8, 1, 1),
+                 hidden_dim: int = 32):
+        super().__init__()
+        self.down_factor = down_factor
+        self.max_disp = max_disp
+        self.refine_dim = refine_dim
+        self.hidden_dim = hidden_dim
+        self.refine_dilates = tuple(refine_dilates)
+        self.feature_extractor = FeatureEncoder(3, hidden_dim, down_factor)
+        self.cost_filter = CostFilter3D(hidden_dim)
+        self.refine_layer = nn.ModuleList(
+            [RefineNet(refine_dim, hidden_dim, self.refine_dilates,
+                       warp_guidance=True) for _ in range(down_factor)])
+
+    def forward(self, left_img, right_img, *, banded_warp: bool = False):
+        align = 2 ** self.down_factor
+        vol_disp = (self.max_disp + 1) // align
+        dtype = self.cost_filter[0].weight.dtype
+
+        left, orig_hw = pad_to_multiple(normalize_images(left_img, dtype), align)
+        right, _ = pad_to_multiple(normalize_images(right_img, dtype), align)
+
+        lf = self.feature_extractor(left)
+        rf = self.feature_extractor(right)
+        x = _coarse_disparity(lf, rf, vol_disp, self.cost_filter)
+
+        shifts = (refine_max_shifts(self.max_disp, self.down_factor)
+                  if banded_warp else [None] * self.down_factor)
+        multi_scale = []
+        out_hw = left.shape[1:3]
+        for i, refine in enumerate(self.refine_layer):
+            x = refine(x, left, right, max_shift=shifts[i])
             multi_scale.append(_full_res_nearest(x, out_hw, orig_hw))
         return [-1.0 * m for m in multi_scale]
 

@@ -2,9 +2,9 @@
 
 The JAX package re-implements ``torch.nn.functional.interpolate`` with
 ``align_corners=False`` and no antialias as gather arithmetic; here it is
-that very call.  The warps by a horizontal flow map (v3's refinements warp
-the right view's features by the current disparity) were plain XLA in the
-JAX package and are plain PyTorch here:
+that very call.  The warps by a horizontal flow map (v2's and v3's
+refinements warp the right view's RGB or features by the current
+disparity) were plain XLA in the JAX package and are plain PyTorch here:
 
 * :func:`warp_by_flow_map` -- the reference's ``F.grid_sample`` warp, with
   its ``align_corners=False`` renormalization on both axes;
@@ -90,9 +90,11 @@ def warp_by_flow_map_banded(image: torch.Tensor, flow: torch.Tensor,
 
     Output pixel x reads taps x0 = floor(x_pix) and x0 + 1; where its tap
     offset ``x - x0`` lies outside ``[-1, max_shift + 1]`` it is zero (the
-    contract of the JAX package's ``warp_by_flow_map_matmul_banded``, which
-    the kernel path of v3 uses).  The flow and the tap weights stay float32;
-    the taps are summed in float32 and cast to the image's dtype."""
+    contract of the JAX package's ``warp_by_flow_map_banded`` and
+    ``warp_by_flow_map_matmul_banded``, which its kernel paths of v2 and v3
+    use).  The flow and the tap weights stay float32, and the flow keeps
+    its gradient through the tap weights; the taps are summed in float32
+    and cast to the image's dtype."""
     b, h, w, c = image.shape
     if flow.shape[-1] != 1:
         raise ValueError(f"expected a 1-channel flow, got {tuple(flow.shape)}")

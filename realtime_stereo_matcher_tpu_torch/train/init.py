@@ -1,12 +1,14 @@
 """Reference train-start weight init (port of
-``realtime_stereo_matcher_tpu/train/init.py`` for v1).
+``realtime_stereo_matcher_tpu/train/init.py`` for v1, v2 and v3).
 
 The reference re-initializes at train start (train_stereo.py:127-135): every
 ``Conv2d`` kernel gets ``kaiming_normal_(mode="fan_out",
 nonlinearity="relu")``, every BatchNorm scale 1 / bias 0 (running mean 0,
 var 1).  What that loop does not touch keeps torch's default init: the
-``Conv3d`` kernels of the cost filter and every conv bias,
-U(+-1/sqrt(fan_in)).  Values are drawn from a CPU ``torch.Generator`` in
+``Conv3d`` kernels of the cost filter, v3's ``ConvTranspose2d``
+up-projections and every conv bias, U(+-1/sqrt(fan_in)), where a transposed
+conv's fan-in is, as torch counts it, out_channels x kh x kw (JAX
+train/init.py:113-121, :141-153).  Values are drawn from a CPU ``torch.Generator`` in
 module order, then copied to the parameters' device, so a seed gives the same
 weights on every device.  A ``torch.Generator`` does not give ``jax.random``'s
 numbers: the JAX package's init is matched in distribution, not value.
@@ -31,9 +33,11 @@ def reference_initialize(model: nn.Module, generator: torch.Generator) -> None:
     """Re-initialize ``model`` in place with the reference's train-start
     distribution (see the module docstring)."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Conv3d)):
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
+            # weight[0]: (C_in, k...) of a conv, (C_out, k...) of a
+            # transposed one, the fan-in torch's default init uses
             fan_in = m.weight[0].numel()
-            if isinstance(m, nn.Conv3d):
+            if isinstance(m, (nn.Conv3d, nn.ConvTranspose2d)):
                 bound = 1.0 / math.sqrt(fan_in)
                 w = _draw(m.weight.shape, generator,
                           lambda t, g: t.uniform_(-bound, bound, generator=g))

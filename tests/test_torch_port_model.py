@@ -33,6 +33,7 @@ from realtime_stereo_matcher_tpu_torch.models import build_model
 from realtime_stereo_matcher_tpu_torch.models.convert import from_jax_variables
 from realtime_stereo_matcher_tpu_torch.models.fast_infer import make_fast_forward
 from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
+    MobileStereoNetV2,
     MobileStereoNetV3,
     RefineNet,
 )
@@ -213,6 +214,13 @@ def test_build_model_is_seeded():
 @pytest.mark.parametrize("mtype", ["MobileStereoNetV2", "MobileStereoNetV4",
                                    "MobileDispNetC", "OpenCVSGBMModule"])
 def test_unported_types_name_the_roadmap(mtype):
+    """Each type the port does not have raises naming ROADMAP.md.  v2 was
+    one of them until it was ported: its case checks that it left the
+    queue and builds."""
+    if mtype == "MobileStereoNetV2":
+        model = build_model({"type": mtype, "parameters": {}}, device="cpu")
+        assert type(model) is MobileStereoNetV2 and model.refine_dim == 7
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model({"type": mtype, "parameters": {}}, device="cpu")
 
@@ -244,15 +252,29 @@ def test_default_device_is_cuda_and_never_falls_back():
 
 
 def test_fast_forward_takes_v1_and_v3_only():
-    with pytest.raises(NotImplementedError, match="v1 and v3.*ROADMAP.md"):
+    """The kernel path takes v1, v2 and v3 (v2 since it was ported) and
+    raises naming ROADMAP.md on anything else."""
+    with pytest.raises(NotImplementedError,
+                       match="v1, v2 and v3.*ROADMAP.md"):
         make_fast_forward(RefineNet())
-    v3 = build_model({"type": "MobileStereoNetV3", "parameters": {}},
-                     device="cpu")
-    assert callable(make_fast_forward(v3))
+    for mtype in ("MobileStereoNetV2", "MobileStereoNetV3"):
+        model = build_model({"type": mtype, "parameters": {}}, device="cpu")
+        assert callable(make_fast_forward(model))
 
 
 def test_v2_still_raises():
-    """v2 stays queued: no model to build, so no kernel path either."""
+    """v2 was queued until it was ported: it now builds from the repo's v2
+    config in eval mode, and the types after it in the queue still raise."""
+    import json
+    import pathlib
+
+    cfg = json.loads((pathlib.Path(__file__).resolve().parent.parent
+                      / "configure" / "stereo_net_config_v2.json").read_text())
+    model = build_model(cfg["model"], device="cpu")
+    assert type(model) is MobileStereoNetV2 and not model.training
+    assert (model.down_factor, model.max_disp, model.hidden_dim,
+            model.refine_dim) == (3, 192, 32, 7)
+    assert model.refine_dilates == (1, 2, 4, 8, 1, 1)
     with pytest.raises(NotImplementedError, match="queued in ROADMAP.md"):
-        build_model({"type": "MobileStereoNetV2", "parameters": {}},
+        build_model({"type": "MobileStereoNetV4", "parameters": {}},
                     device="cpu")

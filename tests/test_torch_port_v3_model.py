@@ -8,10 +8,10 @@
   matches within 5e-6 of each head's largest magnitude, the v1 bound;
 * the kernel path's U-Net (``fast_unet``) matches Flax
   ``UNetFeatureExtractor`` at 64 x 256 on all four levels within 2e-4, and
-  its v3 RefineNet (``fast_refine_warped``, banded warp) matches Flax
-  ``RefineNet(warp_guidance=True)`` on the 65-channel entry where the
-  disparity lies inside the band, within 1e-4 (15 convs in float32 with the
-  BatchNorm folded differently);
+  its v3 RefineNet (``fast_refine`` with the right features, banded warp)
+  matches Flax ``RefineNet(warp_guidance=True)`` on the 65-channel entry
+  where the disparity lies inside the band, within 1e-4 (15 convs in
+  float32 with the BatchNorm folded differently);
 * the kernel path in float32 (the kernels' plain versions on the CPU)
   matches the plain port with the same banded warp within 1e-4, and in
   bfloat16 stays within 1 px median;
@@ -42,7 +42,7 @@ from realtime_stereo_matcher_tpu_torch.kernels import (
 )
 from realtime_stereo_matcher_tpu_torch.kernels.refine_stack import (
     build_refine_plan,
-    fast_refine_warped,
+    fast_refine,
 )
 from realtime_stereo_matcher_tpu_torch.kernels.unet import (
     build_unet_plan,
@@ -177,8 +177,8 @@ def test_fast_refine_warped_matches_flax(rng, port_v3, level):
         jnp.asarray(disp), jnp.asarray(l_f), jnp.asarray(r_f))
     plan = build_refine_plan(model.refine_layers[level], dtype=torch.float32)
     assert plan.entry is not None and len(plan.specs) == 13
-    got = fast_refine_warped(torch.from_numpy(disp), torch.from_numpy(l_f),
-                             torch.from_numpy(r_f), plan, max_shift)
+    got = fast_refine(torch.from_numpy(disp), torch.from_numpy(l_f), plan,
+                      torch.from_numpy(r_f), max_shift)
     assert got.dtype == torch.float32 and got.shape == (1, 2 * h, 2 * w, 1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-4)
