@@ -11,6 +11,14 @@ imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
    every distinct shape of the 720p v1 path, in float32 and bfloat16, then
    timed at its largest shape beside the plain version, one cuDNN call
    (``library_ms``) and the card's bound.
+   The bf16 32 -> 32 stride-1 K1 and the bf16 32 -> 32 K3 run on the
+   tensor cores (``csrc/conv_tc.cuh``): they are also held to their plain
+   versions at the 32 -> 32 shapes of the training steps (forward, and dx
+   with the flipped, transposed weights) and at ragged shapes, and timed at
+   every dilation of the 720p frame and at the training volumes; their rows
+   also give ``device_ms``, the same calls queued behind a device sleep
+   (``time_ms(..., queued=True)``), so that the events read device time
+   alone.
 3. train kernels: K4 (``dw_reduce``, 2D and 3D) and the channel pairs the
    backward adds to K1 and K3, against their plain versions at every shape
    of the 4 x 480 x 640 training step, float32 and bfloat16; K4 timed beside
@@ -169,13 +177,21 @@ REPLACES = {
     "conv3x3_s2": "realtime_stereo_matcher_tpu/kernels/train_conv.py:401",
 }
 SOURCES = {
-    "fused_conv3x3": "realtime_stereo_matcher_tpu_torch/csrc/conv3x3.cu",
+    # the timed bf16 32 -> 32 rows run the tensor-core core (entry points in
+    # csrc/conv3x3.cu and csrc/conv3d.cu)
+    "fused_conv3x3": "realtime_stereo_matcher_tpu_torch/csrc/conv_tc.cuh",
     "fused_conv3x3_s2": "realtime_stereo_matcher_tpu_torch/csrc/conv3x3.cu",
     "fused_conv4x4_s2": "realtime_stereo_matcher_tpu_torch/csrc/conv3x3.cu",
-    "fused_conv3d": "realtime_stereo_matcher_tpu_torch/csrc/conv3d.cu",
+    "fused_conv3d": "realtime_stereo_matcher_tpu_torch/csrc/conv_tc.cuh",
     "dw_reduce": "realtime_stereo_matcher_tpu_torch/csrc/dw_reduce.cu",
     "conv3x3_s2": "realtime_stereo_matcher_tpu_torch/kernels/train_conv.py",
 }
+# the design of the kernels that carry the bf16 32 -> 32 calls (the timed
+# rows); float32 and the narrow pairs stay on the CUDA-core template
+TC_DESIGN = {"fused_conv3x3": "tensor cores (mma.sync), cp.async",
+             "fused_conv3d": "tensor cores (mma.sync), cp.async"}
+# device clock cycles queued ahead of a device-time run (~50 ms at 1.98 GHz)
+SLEEP_CYCLES = 100_000_000
 ROOT = pathlib.Path(__file__).resolve().parent
 # peak memory rate (bytes/s) and dense bf16 tensor-core rate (FLOP/s) from
 # NVIDIA's data sheets, by card name; other cards use the H100 SXM row
@@ -330,11 +346,20 @@ def check_kernels(device, cases2d, cases3d) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def time_ms(fn, iters: int = 20, warm: int = 3) -> float:
-    """Mean device time of one call, by CUDA events around ``iters`` calls."""
+def time_ms(fn, iters: int = 20, warm: int = 3, queued: bool = False
+            ) -> float:
+    """Mean device time of one call, by CUDA events around ``iters`` calls.
+
+    Where the host issues a call more slowly than the card runs it, the
+    events time the host as well.  ``queued=True`` queues the calls behind a
+    ~50 ms device sleep, so that the events read device time alone (a
+    tensor-core kernel of tens of microseconds takes about as long on the
+    card as its Python wrapper takes on the host)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -343,6 +368,14 @@ def time_ms(fn, iters: int = 20, warm: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _tc_times(kernel, library) -> dict:
+    """``ms`` and ``library_ms`` as every row reads them, and ``device_ms``:
+    the same two with the calls queued (device time alone)."""
+    return dict(ms=time_ms(kernel), library_ms=time_ms(library),
+                device_ms=dict(ms=time_ms(kernel, queued=True),
+                               library_ms=time_ms(library, queued=True)))
 
 
 def _nbytes(*ts) -> int:
@@ -380,15 +413,21 @@ def time_kernels(device, peaks) -> dict:
         x_nchw = x.permute(0, 3, 1, 2)  # channels_last view, no copy
         s, d = case["stride"], case["dil"]
         flops = 2 * out.numel() * 9 * case["cin"]
+
+        def kernel():
+            fused_conv3x3(*args, **kw, residual=res)
+
+        def library():
+            F.conv2d(x_nchw, w_oihw, stride=s, padding=d, dilation=d)
+
+        times = (_tc_times(kernel, library) if name in TC_DESIGN else
+                 dict(ms=time_ms(kernel), library_ms=time_ms(library)))
         rows[name] = dict(
             shape=f"{case['hw'][0]}x{case['hw'][1]} {case['cin']}->"
                   f"{case['cout']} stride {s}" + (" +residual" if res is not None else ""),
-            ms=time_ms(lambda: fused_conv3x3(*args, **kw, residual=res)),
             plain_ms=time_ms(lambda: fused_conv3x3_plain(*args, **kw,
                                                          residual=res)),
-            library_ms=time_ms(lambda: F.conv2d(x_nchw, w_oihw, stride=s,
-                                                padding=d, dilation=d)),
-            bytes=_nbytes(*args, res, out), flops=flops)
+            **times, bytes=_nbytes(*args, res, out), flops=flops)
     case = conv3d_cases()[0]
     args, kw = conv3d_operands(case, torch.bfloat16, device, gen)
     x, w = args[0], args[1]
@@ -397,9 +436,9 @@ def time_kernels(device, peaks) -> dict:
     x_ncdhw = x.permute(0, 4, 1, 2, 3)
     rows["fused_conv3d"] = dict(
         shape=f"{'x'.join(map(str, case['vol']))} {case['cin']}->{case['cout']}",
-        ms=time_ms(lambda: fused_conv3d(*args, **kw)),
         plain_ms=time_ms(lambda: fused_conv3d_plain(*args, **kw)),
-        library_ms=time_ms(lambda: F.conv3d(x_ncdhw, w_oidhw, padding=1)),
+        **_tc_times(lambda: fused_conv3d(*args, **kw),
+                    lambda: F.conv3d(x_ncdhw, w_oidhw, padding=1)),
         bytes=_nbytes(*args, out), flops=2 * out.numel() * 27 * case["cin"])
     return add_bounds(rows, peaks)
 
@@ -501,6 +540,102 @@ def check_train_kernels(device) -> dict:
         log(f"  {len(dw_cases())} K4 cases and 7 new K1/K3 pair cases "
             f"within tolerance in {dtype}")
     return worst
+
+
+def tc_cases() -> tuple[list, list]:
+    """The 32 -> 32 shapes of the tensor-core K1 and K3 beyond the 720p
+    frame's: K1 at the refine levels of the v1 step (batch 4 at 480 x 640,
+    dilations 1-8) and of the v2 / v3 step (batch 8 at 240 x 320), the
+    encoder levels below them (dilation 1), and two ragged shapes; K3 at the
+    720p cost volume, the two training volumes and a ragged one."""
+    k1 = []
+    for b, (h, w) in ((TRAIN_B, TRAIN_HW), (TRAIN_B_V23, TRAIN_HW_V23)):
+        refine = [(b, h >> k, w >> k) for k in (0, 1, 2)]
+        k1 += [(shape, d) for shape in refine for d in (1, 2, 4, 8)]
+        k1.append(((b, h >> 3, w >> 3), 1))
+    k1 += [((3, 37, 53), 1), ((3, 37, 53), 8)]
+    k3 = [(1, 24, HW[0] >> 3, HW[1] >> 3),
+          (TRAIN_B, 24, TRAIN_HW[0] >> 3, TRAIN_HW[1] >> 3),
+          (TRAIN_B_V23, 24, TRAIN_HW_V23[0] >> 3, TRAIN_HW_V23[1] >> 3),
+          (2, 5, 37, 53)]
+    return k1, k3
+
+
+def check_tc_kernels(device) -> dict:
+    """The tensor-core K1 and K3 (bf16 32 -> 32) against their plain
+    versions at ``tc_cases()``: K1 forward (ReLU with a residual, and leaky
+    at the ragged shapes) and dx (no epilogue, the weights flipped in y and
+    x with C_in and C_out swapped, as ``flat_conv3x3`` calls it); K3 with
+    ReLU and dx (flipped in z, y and x, no epilogue)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    worst = {}
+
+    def note(name, err):
+        worst[(name, "bf16")] = max(worst.get((name, "bf16"), 0.0), err)
+
+    k1, k3 = tc_cases()
+    for (n, h, w), d in k1:
+        args = _operands((n, h, w, 32), (3, 3, 32, 32), 32, torch.bfloat16,
+                         device, gen)
+        res = (torch.rand((n, h, w, 32), generator=gen, device=device) * 2
+               - 1).bfloat16()
+        act = 0.2 if h == 37 else "relu"
+        got = fused_conv3x3(*args, dilation=d, act=act, residual=res)
+        ref = fused_conv3x3_plain(*(a.float() for a in args), dilation=d,
+                                  act=act, residual=res.float())
+        note("fused_conv3x3", _compare(got, ref, TOL_BF16,
+                                       f"tc fused_conv3x3 {n}x{h}x{w} d{d}"))
+        x, wt = args[0], args[1].flip((0, 1)).transpose(2, 3).contiguous()
+        one = torch.ones(32, device=device)
+        zero = torch.zeros(32, device=device)
+        got = fused_conv3x3(x, wt, one, zero, dilation=d, act="none")
+        ref = fused_conv3x3_plain(x.float(), wt.float(), one, zero,
+                                  dilation=d, act="none")
+        note("fused_conv3x3", _compare(
+            got, ref, TOL_BF16, f"tc fused_conv3x3 dx {n}x{h}x{w} d{d}"))
+    for vol in k3:
+        args = _operands((*vol, 32), (3, 3, 3, 32, 32), 32, torch.bfloat16,
+                         device, gen)
+        got = fused_conv3d(*args, relu=True)
+        ref = fused_conv3d_plain(*(a.float() for a in args), relu=True)
+        note("fused_conv3d", _compare(got, ref, TOL_BF16,
+                                      f"tc fused_conv3d {vol}"))
+        x, wt = args[0], args[1].flip((0, 1, 2)).transpose(3, 4).contiguous()
+        one = torch.ones(32, device=device)
+        zero = torch.zeros(32, device=device)
+        got = fused_conv3d(x, wt, one, zero, relu=False)
+        ref = fused_conv3d_plain(x.float(), wt.float(), one, zero, relu=False)
+        note("fused_conv3d", _compare(got, ref, TOL_BF16,
+                                      f"tc fused_conv3d dx {vol}"))
+    log(f"  tensor-core kernels: {2 * len(k1)} K1 and {2 * len(k3)} K3 "
+        f"cases within tolerance in torch.bfloat16")
+    return worst
+
+
+def time_tc_kernels(device) -> dict:
+    """The tensor-core kernels at their other main-path shapes: K1 at
+    720 x 1280 +residual for each dilation (the timed row is dilation 1),
+    K3 at the 720p and training volumes; each beside cuDNN's bf16 call."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    out = {"fused_conv3x3": {}, "fused_conv3d": {}}
+    for d in (2, 4, 8):
+        case = dict(hw=HW, cin=32, cout=32, stride=1, dil=d, act="relu",
+                    res=True)
+        args, kw, res = conv3x3_operands(case, torch.bfloat16, device, gen)
+        w_oihw = args[1].permute(3, 2, 0, 1).contiguous()
+        x_nchw = args[0].permute(0, 3, 1, 2)
+        out["fused_conv3x3"][f"720x1280 d{d} +residual"] = _tc_times(
+            lambda: fused_conv3x3(*args, **kw, residual=res),
+            lambda: F.conv2d(x_nchw, w_oihw, padding=d, dilation=d))
+    for vol in tc_cases()[1][:3]:
+        args, kw = conv3d_operands(dict(vol=vol, cin=32, cout=32, relu=True),
+                                   torch.bfloat16, device, gen)
+        w_oidhw = args[1].permute(4, 3, 0, 1, 2).contiguous()
+        x_ncdhw = args[0].permute(0, 4, 1, 2, 3)
+        out["fused_conv3d"]["x".join(map(str, vol))] = _tc_times(
+            lambda: fused_conv3d(*args, **kw),
+            lambda: F.conv3d(x_ncdhw, w_oidhw, padding=1))
+    return out
 
 
 def time_train_kernels(device, peaks) -> dict:
@@ -1197,7 +1332,10 @@ def main() -> int:
             f"{time.perf_counter() - t0:.3f} s")
     with Phase("kernels"):
         worst = check_kernels(device, conv3x3_cases(), conv3d_cases())
+        tc_worst = check_tc_kernels(device)
         rows = time_kernels(device, peaks)
+        tc_rows = time_tc_kernels(device)
+        log(json.dumps({"tc_kernel_times": tc_rows}))
     with Phase("train kernels"):
         train_worst = check_train_kernels(device)
         train_rows = time_train_kernels(device, peaks)
@@ -1237,7 +1375,8 @@ def main() -> int:
     for key in ("f32", "bf16"):  # the largest error of each kernel
         for name in ("fused_conv3x3", "fused_conv3d"):
             worst[(name, key)] = max(worst[(name, key)],
-                                     train_worst[(name, key)])
+                                     train_worst[(name, key)],
+                                     tc_worst.get((name, key), 0.0))
         worst[("fused_conv3x3", key)] = max(worst[("fused_conv3x3", key)],
                                             v3_worst[("fused_conv3x3", key)],
                                             v2_worst[("fused_conv3x3", key)])
@@ -1288,6 +1427,13 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
         })
+        if name in TC_DESIGN:
+            kernels[-1]["design"] = TC_DESIGN[name]
+            kernels[-1]["bound_share"] = row["bound_ms"] / row["ms"]
+            kernels[-1]["device_ms"] = dict(
+                row["device_ms"],
+                bound_share=row["bound_ms"] / row["device_ms"]["ms"])
+            kernels[-1]["other_shapes"] = tc_rows[name]
         if name in over_scale:
             kernels[-1]["max_err_over_scale"] = over_scale[name]
         if name in pairs:

@@ -27,19 +27,38 @@
 //
 // What bounds it on an H100: at 720x1280, 32 -> 32 channels in bf16 the conv
 // does 17.0 GFLOP on 118 MB (177 MB with the residual), about 96 FLOP per
-// byte, below the card's ~295 FLOP/byte ridge for bf16 tensor cores: with
-// tensor cores the kernel would be memory-bound (35-53 us at 3.35 TB/s).
-// This first kernel runs its FMAs on the CUDA cores in float32 (67 TFLOP/s
-// peak), so it is bound by those operations instead (>= 0.25 ms for that
-// launch).  A wgmma / TMA redesign that reaches the memory bound is later
-// work.  The same holds for the 4x4 stride-2 conv: at 720x1280 -> 360x640,
-// 32 -> 32 in bf16 it does 7.55 GFLOP on 73.7 MB, memory-bound on tensor
-// cores (22 us), FMA-bound here (>= 0.11 ms at the CUDA cores' peak).
+// byte, below the card's ~295 FLOP/byte ridge for bf16 tensor cores: on
+// tensor cores it is bound by memory (35-53 us at 3.35 TB/s).
+//
+// Two designs, chosen by dtype and channel pair:
+//   * bf16 32 -> 32, stride 1 (50 of the 56 K1 launches of a 720p frame):
+//     rsm_conv3x3_tc, the tensor-core implicit GEMM of conv_tc.cuh.  A block
+//     owns a 64-column strip and walks down it 8 output rows a step, keeping
+//     2 * 8 + 2 d input rows in a shared-memory ring filled by cp.async, so
+//     each input row of the strip (with its d-column halo) comes from global
+//     memory once per block; the rows of a dilation-8 halo come from L2, not
+//     DRAM, because neighbouring blocks (blockIdx.x fastest) walk the same
+//     row band.  MMAs are far above the ~96 FLOP/byte it needs, so its limit
+//     is bytes: 16-byte cp.async loads, the residual prefetched into L2 a
+//     step ahead, and 16-byte stores staged through shared memory.  Measured
+//     on an H100 (PERF.md): ~0.58 of its bound at dilations 1 and 2 (two
+//     blocks per SM); at dilations 4 and 8 the ring (137 and 190 KB) leaves
+//     one 8-warp block per SM, and those launches lose to cuDNN.
+//   * float32, and every narrow pair (4, 3, 7 or 1 channels in or out), and
+//     stride 2: the CUDA-core template of conv_common.cuh, float32 FMAs
+//     (67 TFLOP/s peak), bound by those operations.  float32 stays there so
+//     that its checks hold at ~3e-6 (TF32 tensor cores would not); a narrow
+//     pair would waste most of each MMA.  The 4x4 stride-2 conv (720x1280
+//     -> 360x640, 32 -> 32 in bf16: 7.55 GFLOP on 73.7 MB, 22 us on memory)
+//     is FMA-bound there (>= 0.11 ms).
 //
 // C interface (bound with ctypes by kernels/_build.py): pointers and the
 // stream are void*, the rest int; the return value is the cudaError_t of the
-// launch (cudaErrorInvalidValue for a shape this file does not instantiate).
+// launch (cudaErrorInvalidValue for a shape or plan this file does not take).
+#include <type_traits>
+
 #include "conv_common.cuh"
+#include "conv_tc.cuh"
 
 namespace {
 
@@ -57,7 +76,8 @@ cudaError_t dispatch(const void* x, const void* w, const void* scale,
                                         h, wd, ho, wo, dil, pad, act,      \
                                         alpha, st);
   if constexpr (S == 1) {
-    RSM_CASE(32, 32)
+    // bf16 32 -> 32 runs on the tensor cores (rsm_conv3x3_tc)
+    if constexpr (std::is_same_v<T, float>) RSM_CASE(32, 32)
     RSM_CASE(4, 32)
     RSM_CASE(32, 1)
     RSM_CASE(32, 4)  // dx of the 4 -> 32 refine entry conv (training)
@@ -103,6 +123,23 @@ int rsm_conv3x3(const void* x, const void* w, const void* scale,
                                     cin, cout, ho, wo, dil, act, alpha, st);
   }
   return cudaErrorInvalidValue;
+}
+
+// bf16 32 -> 32, stride 1, dilation dil, on the tensor cores, by the plan of
+// kernels/conv3x3.py (conv3x3_tc_plan): tile th x tw, `ring` input rows,
+// `steps` row tiles per block, grid (gx, gy, gz), `smem` dynamic shared
+// bytes.
+int rsm_conv3x3_tc(const void* x, const void* w, const void* scale,
+                   const void* bias, const void* res, void* out, int n, int h,
+                   int wd, int dil, int th, int tw, int ring, int steps,
+                   int gx, int gy, int gz, int smem, int act, float alpha,
+                   int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (dil < 1) return cudaErrorInvalidValue;
+  return rsm::tc::launch_tc<1>(x, w, scale, bias, res, out, n, 1, h, wd, dil,
+                               th, tw, ring, steps, gx, gy, gz, smem, act,
+                               alpha, static_cast<cudaStream_t>(stream));
 }
 
 // The 4x4 stride-2 TF-SAME conv: pad_lo = 1, Ho = ceil(H / 2), 32 -> 32.

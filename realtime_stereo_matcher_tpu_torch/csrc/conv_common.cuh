@@ -1,6 +1,8 @@
-// Direct convolution with a fused epilogue, shared by the 3x3 kernels
-// (conv3x3.cu: stride 1 and stride 2), the 4x4 stride-2 TF-SAME kernel
-// (conv3x3.cu) and the 3x3x3 kernel (conv3d.cu).
+// Direct convolution with a fused epilogue on the CUDA cores, shared by the
+// 3x3 kernels (conv3x3.cu: stride 1 and stride 2), the 4x4 stride-2 TF-SAME
+// kernel (conv3x3.cu) and the 3x3x3 kernel (conv3d.cu) for float32 and for
+// the narrow channel pairs.  The bf16 32 -> 32 stride-1 3x3 and 3x3x3 convs
+// run on the tensor cores instead (conv_tc.cuh).
 //
 // Layouts are channels-last and contiguous:
 //   x   (N, D, H, W, CI)        T    (D = 1 for a 2D conv)

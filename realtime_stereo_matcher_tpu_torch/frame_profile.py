@@ -42,6 +42,9 @@ from realtime_stereo_matcher_tpu_torch.train.trainer import create_train_state
 # rsm::conv_kernel<T, CI, CO, S, KD, K>
 _CONV = re.compile(r"conv_kernel<([^,]+),\s*(\d+),\s*(\d+),\s*(\d+),"
                    r"\s*(\d+)(?:,\s*(\d+))?>")
+# rsm::tc::conv_tc_kernel<KD>: the bf16 32 -> 32 tensor-core convs (the
+# profiler may print the argument as "1" or "(int)1")
+_CONV_TC = re.compile(r"conv_tc_kernel<\s*(?:\(int\)\s*)?(\d+)")
 # dw_partial_kernel<T, KD, CI, CO>
 _DW = re.compile(r"dw_partial_kernel<([^,]+),\s*(\d+),\s*(\d+),\s*(\d+)>")
 
@@ -49,6 +52,10 @@ _DW = re.compile(r"dw_partial_kernel<([^,]+),\s*(\d+),\s*(\d+),\s*(\d+)>")
 def kernel_group(name: str) -> str:
     """A device kernel's group: the port's kernels by (kernel, C_in, C_out),
     anything else by its name up to the template arguments."""
+    m = _CONV_TC.search(name)
+    if m:
+        kernel = "fused_conv3d" if m.group(1) == "3" else "fused_conv3x3"
+        return f"{kernel} 32->32"
     m = _CONV.search(name)
     if m:
         _, ci, co, s, kd, k = m.groups()

@@ -43,6 +43,12 @@ _SIGNATURES = {
     # x, w, scale, bias, res, out, dtype, n, h, w, cin, cout, ho, wo,
     # stride, dilation, act, alpha, device, stream
     "rsm_conv3x3": [_P] * 6 + [_I] * 11 + [ctypes.c_float, _I, _P],
+    # x, w, scale, bias, res, out, n, h, w, dilation, th, tw, ring, steps,
+    # grid x, y, z, shared bytes, act, alpha, device, stream
+    "rsm_conv3x3_tc": [_P] * 6 + [_I] * 13 + [ctypes.c_float, _I, _P],
+    # x, w, scale, bias, out, n, d, h, w, th, tw, ring, steps, grid x, y, z,
+    # shared bytes, act, device, stream
+    "rsm_conv3d_tc": [_P] * 5 + [_I] * 14 + [_P],
     # x, w, scale, bias, out, dtype, n, h, w, cin, cout, ho, wo, act, alpha,
     # device, stream
     "rsm_conv4x4_s2": [_P] * 5 + [_I] * 9 + [ctypes.c_float, _I, _P],

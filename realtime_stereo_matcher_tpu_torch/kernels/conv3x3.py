@@ -10,10 +10,14 @@ halving H and W), in the epilogue order of the TPU kernel: the residual is
 added after the activation and the cast.  ``act`` is ``"relu"``, ``"none"``
 or a float, the negative slope of a leaky ReLU.
 
-On a CUDA tensor it launches the hand-written kernel of ``csrc/conv3x3.cu``
+On a CUDA tensor it launches a hand-written kernel of ``csrc/conv3x3.cu``
 (stride 1 counts as ``fused_conv3x3``, stride 2 as ``fused_conv3x3_s2``, the
 two TPU kernels it replaces); on a CPU tensor it runs
 :func:`fused_conv3x3_plain`.  There is no fallback from the one to the other.
+Which kernel runs is decided by dtype and channel pair: bf16 32 -> 32 at
+stride 1 runs the tensor-core kernel (``rsm_conv3x3_tc``, ``csrc/conv_tc.cuh``)
+by the tile plan of :func:`conv3x3_tc_plan`; float32, the narrow pairs and
+stride 2 run the CUDA-core template (``rsm_conv3x3``, ``csrc/conv_common.cuh``).
 
 ``fused_conv4x4_s2`` is the v3 U-Net's downsampler, a 4x4 stride-2 conv with
 TF-SAME padding (output pixel X reads input 2X-1 .. 2X+2, so H and W become
@@ -25,6 +29,7 @@ a CUDA tensor it launches the kernel of ``csrc/conv3x3.cu`` (counted as
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +46,102 @@ KERNEL_NAMES = {1: "fused_conv3x3", 2: "fused_conv3x3_s2"}
 KERNEL_4X4 = "fused_conv4x4_s2"
 CHANNELS_4X4 = (32, 32)  # the (C_in, C_out) csrc/conv3x3.cu instantiates
 _ACT_CODES = {"none": 0, "relu": 1}  # a float is leaky ReLU (code 2)
+
+# The tensor-core kernels of csrc/conv_tc.cuh (bf16, 32 -> 32): 8 warps of 64
+# output pixels, a 64-byte pixel, 1 KB of output staging per warp.  CUDA
+# reserves 1 KB of an SM's shared memory for each block it holds.
+TC_CHANNELS = (32, 32)
+TC_PIX_BYTES = 64
+TC_STAGE_BYTES = 8 * 16 * TC_PIX_BYTES
+SMEM_RESERVED = 1024
+GRID_YZ_MAX = 65535
+K1_TILE = (8, 64)   # output rows x columns of one step (csrc Tile<1>)
+
+
+@dataclasses.dataclass(frozen=True)
+class Card:
+    """What a tile plan needs of the card: its SMs and the shared memory an
+    SM holds (bytes); a block may opt in to all of it but ``SMEM_RESERVED``.
+    (An H100 SXM: ``Card(132, 233_472)``.)"""
+
+    sms: int
+    smem_per_sm: int
+
+    @property
+    def smem_per_block(self) -> int:
+        return self.smem_per_sm - SMEM_RESERVED
+
+
+@functools.cache
+def card_of(index: int) -> Card:
+    """The :class:`Card` of CUDA device ``index``, read once."""
+    props = torch.cuda.get_device_properties(index)
+    return Card(props.multi_processor_count,
+                props.shared_memory_per_multiprocessor)
+
+
+@dataclasses.dataclass(frozen=True)
+class TcPlan:
+    """The tiling of one tensor-core launch, computed here and checked by
+    the C entry point (``csrc/conv_tc.cuh`` ``launch_tc``).
+
+    ``kd`` is 1 (3x3 conv: a block walks down a ``tw``-column strip, ``th``
+    rows a step, ``steps`` steps) or 3 (3x3x3 conv: a block owns a
+    ``th`` x ``tw`` (h, w) tile and walks ``steps`` depths).  ``ring`` is the
+    number of input units (rows, or depth slabs) held in shared memory;
+    ``smem`` the dynamic shared-memory bytes; ``grid`` (x, y, z)."""
+
+    kd: int
+    shape: tuple          # (n, d, h, w) of the output
+    dilation: int
+    th: int
+    tw: int
+    ring: int
+    steps: int
+    grid: tuple
+    smem: int
+
+
+def tc_blocks_per_sm(smem: int, card: Card) -> int:
+    """Blocks of 256 threads an SM of ``card`` holds at ``smem`` dynamic
+    bytes each (registers cap it at 2: the kernels' launch bounds allow 128
+    a thread).  Raises if not even one fits."""
+    if smem > card.smem_per_block:
+        raise ValueError(f"a tensor-core plan needs {smem} B of shared memory "
+                         f"a block; the card allows {card.smem_per_block}")
+    return min(2, card.smem_per_sm // (smem + SMEM_RESERVED))
+
+
+def _pick_steps(units: int, blocks_per_chunk: int, slots: int, cost):
+    """The chunk length (1..units) whose launch ends soonest: full waves of
+    ``slots`` blocks times one block's ``cost(steps)``."""
+    def total(steps):
+        blocks = blocks_per_chunk * -(-units // steps)
+        return -(-blocks // slots) * cost(steps), -steps
+    return min(range(1, units + 1), key=total)
+
+
+@functools.cache  # called on every launch: the frame's host time
+def conv3x3_tc_plan(n: int, h: int, w: int, dilation: int,
+                    card: Card) -> TcPlan:
+    """Tile plan of the bf16 32 -> 32 stride-1 3x3 conv on the tensor cores.
+
+    A block walks down a 64-column strip, 8 output rows a step, with a ring
+    of 2 * 8 + 2 d input rows of 64 + 2 d pixels; the strips of a row band
+    are neighbours in the grid (x fastest), so a dilated halo comes from L2.
+    Rows per block are chosen so that the launch fills ``card``: full waves
+    times the rows one block loads (its bytes: the kernel is memory-bound).
+    Cached: the search costs tens of microseconds of host time a launch."""
+    th, tw = K1_TILE
+    ring = 2 * th + 2 * dilation
+    smem = 9 * 32 * TC_PIX_BYTES + ring * (tw + 2 * dilation) * TC_PIX_BYTES \
+        + TC_STAGE_BYTES
+    tiles_h, tiles_w = -(-h // th), -(-w // tw)
+    slots = card.sms * tc_blocks_per_sm(smem, card)
+    steps = _pick_steps(tiles_h, tiles_w * n, slots,
+                        lambda s: s * th + 2 * dilation)
+    return TcPlan(1, (n, 1, h, w), dilation, th, tw, ring, steps,
+                  (tiles_w, -(-tiles_h // steps), n), smem)
 
 
 def output_hw(h: int, w: int, stride: int) -> tuple[int, int]:
@@ -92,7 +193,11 @@ def fused_conv3x3(x, w, scale, bias, *, stride=1, dilation=1, act="relu",
 
     Arguments as in :func:`fused_conv3x3_plain`.  On CUDA: x, w and residual
     share one dtype (float32 or bfloat16), scale and bias are float32, all
-    are contiguous, and (C_in, C_out) is one of ``SUPPORTED_CHANNELS``."""
+    are contiguous, and (C_in, C_out) is one of ``SUPPORTED_CHANNELS``.
+    Routing on CUDA, by dtype and channel pair: bf16 ``TC_CHANNELS`` at
+    stride 1 launches the tensor-core kernel (``rsm_conv3x3_tc``) with
+    :func:`conv3x3_tc_plan`; every other call the CUDA-core template
+    (``rsm_conv3x3``).  Both count as ``KERNEL_NAMES[stride]``."""
     if x.device.type == "cpu":
         return fused_conv3x3_plain(x, w, scale, bias, stride=stride,
                                    dilation=dilation, act=act,
@@ -128,6 +233,17 @@ def fused_conv3x3(x, w, scale, bias, *, stride=1, dilation=1, act="relu",
 
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=dev)
     name = KERNEL_NAMES[stride]
+    if x.dtype == torch.bfloat16 and (cin, cout) == TC_CHANNELS and stride == 1:
+        plan = conv3x3_tc_plan(n, h, wd, dilation, card_of(dev.index))
+        rc = _build.library().rsm_conv3x3_tc(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            residual.data_ptr() if residual is not None else None,
+            out.data_ptr(), n, h, wd, dilation, plan.th, plan.tw, plan.ring,
+            plan.steps, *plan.grid, plan.smem, act_code, alpha, dev.index,
+            _build.stream_of(x))
+        _build.check(rc, name)
+        _build.LAUNCHES[name] += 1
+        return out
     rc = _build.library().rsm_conv3x3(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         residual.data_ptr() if residual is not None else None, out.data_ptr(),

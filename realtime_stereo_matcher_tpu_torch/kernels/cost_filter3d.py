@@ -6,24 +6,60 @@ padding in D, H and W,
 
     y = relu?(conv3x3x3(x, w) * scale + bias), cast to x's dtype.
 
-On a CUDA tensor it launches the hand-written kernel of ``csrc/conv3d.cu``
+On a CUDA tensor it launches a hand-written kernel of ``csrc/conv3d.cu``
 (counted as ``fused_conv3d``); on a CPU tensor it runs
 :func:`fused_conv3d_plain`.  There is no fallback from the one to the other.
+Which kernel runs is decided by dtype and channel pair: bf16 32 -> 32 runs
+the tensor-core kernel (``rsm_conv3d_tc``, ``csrc/conv_tc.cuh``) by the tile
+plan of :func:`conv3d_tc_plan`; float32 and the 32 -> 1 / 1 -> 32 pairs run
+the CUDA-core template (``rsm_conv3d``, ``csrc/conv_common.cuh``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from realtime_stereo_matcher_tpu_torch.kernels import _build
 from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
+    TC_CHANNELS,
+    TC_PIX_BYTES,
+    TC_STAGE_BYTES,
+    Card,
     ConvSpec,
+    TcPlan,
+    _pick_steps,
+    card_of,
     conv_spec,
+    tc_blocks_per_sm,
 )
 
 SUPPORTED_CHANNELS = {(32, 32), (32, 1), (1, 32)}
 KERNEL_NAME = "fused_conv3d"
+K3_TILE = (16, 32)  # (h, w) output tile of a block (csrc Tile<3>)
+K3_RING = 4         # input depth slabs held in shared memory
+
+
+@functools.cache  # called on every launch
+def conv3d_tc_plan(b: int, d: int, h: int, w: int, card: Card) -> TcPlan:
+    """Tile plan of the bf16 32 -> 32 3x3x3 conv on the tensor cores.
+
+    A block owns a 16 x 32 (h, w) tile and walks along D with a ring of 4
+    input slabs of 18 x 34 pixels, beside 54 KB of resident weights (one
+    block per SM).  D is split into chunks, each reloading its two halo
+    slabs, chosen so that the launch on ``card`` ends soonest: full waves
+    times one block's depths plus one for its first slabs, which no MMA
+    overlaps."""
+    th, tw = K3_TILE
+    smem = 27 * 32 * TC_PIX_BYTES \
+        + K3_RING * (th + 2) * (tw + 2) * TC_PIX_BYTES + TC_STAGE_BYTES
+    tiles = -(-h // th) * -(-w // tw)
+    slots = card.sms * tc_blocks_per_sm(smem, card)
+    steps = _pick_steps(d, tiles * b, slots, lambda s: s + 1)
+    return TcPlan(3, (b, d, h, w), 1, th, tw, K3_RING, steps,
+                  (tiles, -(-d // steps), b), smem)
 
 
 def fused_conv3d_plain(x, w, scale, bias, *, relu=True):
@@ -46,7 +82,11 @@ def fused_conv3d(x, w, scale, bias, *, relu=True):
 
     Arguments as in :func:`fused_conv3d_plain`.  On CUDA: x and w share one
     dtype (float32 or bfloat16), scale and bias are float32, all are
-    contiguous, and (C_in, C_out) is one of ``SUPPORTED_CHANNELS``."""
+    contiguous, and (C_in, C_out) is one of ``SUPPORTED_CHANNELS``.
+    Routing on CUDA, by dtype and channel pair: bf16 ``TC_CHANNELS``
+    launches the tensor-core kernel (``rsm_conv3d_tc``) with
+    :func:`conv3d_tc_plan`; every other call the CUDA-core template
+    (``rsm_conv3d``).  Both count as ``KERNEL_NAME``."""
     if x.device.type == "cpu":
         return fused_conv3d_plain(x, w, scale, bias, relu=relu)
     if x.device.type != "cuda":
@@ -70,6 +110,16 @@ def fused_conv3d(x, w, scale, bias, *, relu=True):
         _build.require(t, name, shape=(cout,), dtype=torch.float32, device=dev)
 
     out = torch.empty((b, d, h, wd, cout), dtype=x.dtype, device=dev)
+    if x.dtype == torch.bfloat16 and (cin, cout) == TC_CHANNELS:
+        plan = conv3d_tc_plan(b, d, h, wd, card_of(dev.index))
+        rc = _build.library().rsm_conv3d_tc(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), b, d, h, wd, plan.th, plan.tw, plan.ring,
+            plan.steps, *plan.grid, plan.smem, 1 if relu else 0, dev.index,
+            _build.stream_of(x))
+        _build.check(rc, KERNEL_NAME)
+        _build.LAUNCHES[KERNEL_NAME] += 1
+        return out
     rc = _build.library().rsm_conv3d(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         out.data_ptr(), _build.DTYPE_CODES[x.dtype], b, d, h, wd, cin, cout,

@@ -1,0 +1,221 @@
+#!/usr/bin/env python3
+"""Side-by-side timings of the port's tensor-core convolutions on one card.
+
+    python3 tools/tc_compare.py variants --out DIR
+    python3 tools/tc_compare.py in-turns --parent TREE --out DIR
+
+``variants``: K1 and K3 (``csrc/conv_tc.cuh``, bf16 32 -> 32) as built,
+with parts of their work cut out (the ``RSM_TC_CUT_*`` macros of
+``conv_tc.cuh``), and K3's wgmma form (``tools/conv_tc_wgmma.cuh`` in place
+of ``conv_tc.cuh``).  Each variant is a copy of the package under ``DIR``,
+built and timed in a process of its own; the variants run in turns
+(A B ... B A).  A cut variant's results are wrong by design: only its time
+means anything.
+
+``in-turns``: a parent tree (a ``git archive`` of the parent commit,
+unpacked) against the tree that holds this script, in the order parent,
+change, change, parent.  In each: ``python3 chip_smoke.py`` (its log kept
+under ``DIR``; frame and step medians and every kernel row read from it),
+then the K1 / K3 timings below.
+
+The timings: K1 at 720 x 1280 32 -> 32 +residual, dilations 1 and 8, and K3
+at (1, 24, 90, 160) and (4, 24, 60, 80), each beside the cuDNN call of the
+same convolution, read two ways: ``ms``, CUDA events around 20 calls, as
+``chip_smoke.py``'s ``time_ms`` reads every row (where the host issues the
+calls more slowly than the card runs them, this times the host too), and
+``device_ms``, the same 20 calls queued behind a ~50 ms device sleep
+(device time alone).  K3's largest error against its plain version is given
+too.  One JSON line per run, a summary in ``DIR/summary.json``, and as the
+last line the card's name and power limit.  Needs one CUDA card and nvcc;
+``DIR`` is best a directory git ignores (``_runs/``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import shutil
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PKG_NAME = "realtime_stereo_matcher_tpu_torch"
+WGMMA = ROOT / "tools" / "conv_tc_wgmma.cuh"
+# the macros of csrc/conv_tc.cuh each cut variant defines
+VARIANTS = {
+    "as built": (),
+    "wgmma form": None,  # tools/conv_tc_wgmma.cuh in place of conv_tc.cuh
+    "no MMA": ("RSM_TC_CUT_MMA",),
+    "no A fragments": ("RSM_TC_CUT_A",),
+    "no MMA, no A fragments": ("RSM_TC_CUT_MMA", "RSM_TC_CUT_A"),
+    "no output stores": ("RSM_TC_CUT_STORE",),
+}
+SLEEP_CYCLES = 100_000_000  # ~50 ms at 1.98 GHz, as in chip_smoke.py
+
+
+def make_variant(name: str, out: pathlib.Path) -> pathlib.Path:
+    """A copy of the package under ``out/<name>`` with ``VARIANTS[name]``'s
+    source; returns the directory to put on ``sys.path``."""
+    root = out / name.replace(",", "").replace(" ", "_")
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(ROOT / PKG_NAME, root / PKG_NAME,
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    header = root / PKG_NAME / "csrc" / "conv_tc.cuh"
+    if VARIANTS[name] is None:
+        shutil.copyfile(WGMMA, header)
+    else:
+        defines = "".join(f"#define {m}\n" for m in VARIANTS[name])
+        header.write_text(defines + header.read_text())
+    return root
+
+
+def time_tree(tree: pathlib.Path) -> dict:
+    """The K1 / K3 timings of the package in ``tree`` (in this process)."""
+    sys.path.insert(0, str(tree))
+    import torch
+    import torch.nn.functional as F
+
+    from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import fused_conv3x3
+    from realtime_stereo_matcher_tpu_torch.kernels.cost_filter3d import (
+        fused_conv3d,
+        fused_conv3d_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev) * 2 - 1
+
+    def events_ms(fn, queued, iters=20):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        if queued:
+            torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def both(kernel, library):
+        return {"ms": events_ms(kernel, False),
+                "library_ms": events_ms(library, False),
+                "device_ms": events_ms(kernel, True),
+                "library_device_ms": events_ms(library, True)}
+
+    scale, bias = rand(32) * 0.5 + 1.0, rand(32) * 0.3
+    out = {}
+    x, r = rand(1, 720, 1280, 32).bfloat16(), rand(1, 720, 1280, 32).bfloat16()
+    w = (rand(3, 3, 32, 32) / 17).bfloat16()
+    x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+    for d in (1, 8):
+        out[f"K1 720x1280 d{d} +res"] = both(
+            lambda: fused_conv3x3(x, w, scale, bias, dilation=d, residual=r),
+            lambda: F.conv2d(x_nchw, w_oihw, padding=d, dilation=d))
+    w3 = (rand(3, 3, 3, 32, 32) / 29).bfloat16()
+    w3_oidhw = w3.permute(4, 3, 0, 1, 2).contiguous()
+    for vol in ((1, 24, 90, 160), (4, 24, 60, 80)):
+        x3 = rand(*vol, 32).bfloat16()
+        x3_ncdhw = x3.permute(0, 4, 1, 2, 3)
+        key = f"K3 {'x'.join(map(str, vol))}"
+        out[key] = both(lambda: fused_conv3d(x3, w3, scale, bias),
+                        lambda: F.conv3d(x3_ncdhw, w3_oidhw, padding=1))
+        ref = fused_conv3d_plain(x3.float(), w3.float(), scale, bias)
+        out[key]["max_abs_err"] = float(
+            (fused_conv3d(x3, w3, scale, bias).float() - ref).abs().max())
+    return out
+
+
+def _run(cmd, cwd, log: pathlib.Path) -> int:
+    with open(log, "w") as f:
+        return subprocess.run(cmd, cwd=cwd, stdout=f, stderr=subprocess.STDOUT,
+                              timeout=1200).returncode
+
+
+def _child_times(tree: pathlib.Path, log: pathlib.Path) -> dict:
+    rc = _run([sys.executable, str(pathlib.Path(__file__).resolve()), "time",
+               "--root", str(tree.resolve())], ROOT, log)
+    lines = log.read_text().splitlines()
+    if rc or not lines:
+        raise RuntimeError(f"timing {tree} failed ({rc}); see {log}")
+    return json.loads(lines[-1])
+
+
+def _smoke_numbers(log: pathlib.Path) -> dict:
+    """K1 / K3 rows and the frame and step medians of a chip_smoke.py log."""
+    got = {}
+    for line in log.read_text().splitlines():
+        if line.startswith('{"kernels"'):
+            got["kernels"] = {k["name"]: {key: k.get(key) for key in (
+                "ms", "library_ms", "plain_ms", "bound_ms", "device_ms")}
+                for k in json.loads(line)["kernels"]}
+        elif line.startswith('{"frame_latency_ms"'):
+            rec = json.loads(line)
+            got["frame_ms_median"] = {
+                "v1": rec["frame_latency_ms"]["median"],
+                "v2": rec["v2"]["frame_latency_ms"]["median"],
+                "v3": rec["v3"]["frame_latency_ms"]["median"]}
+            got["step_ms_median"] = {
+                m: rec[key]["median"] for m, key in (
+                    ("v1", "train_step_ms"), ("v2", "train_step_ms_v2"),
+                    ("v3", "train_step_ms_v3"))}
+    return got
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    v = sub.add_parser("variants")
+    v.add_argument("--out", type=pathlib.Path, required=True)
+    t = sub.add_parser("in-turns")
+    t.add_argument("--parent", type=pathlib.Path, required=True)
+    t.add_argument("--out", type=pathlib.Path, required=True)
+    c = sub.add_parser("time")
+    c.add_argument("--root", type=pathlib.Path, required=True)
+    args = ap.parse_args(argv)
+    if args.cmd == "time":
+        print(json.dumps(time_tree(args.root)), flush=True)
+        return 0
+
+    args.out.mkdir(parents=True, exist_ok=True)
+    runs = []
+    if args.cmd == "variants":
+        trees = {name: make_variant(name, args.out / "variants")
+                 for name in VARIANTS}
+        for i, name in enumerate(list(VARIANTS) + list(VARIANTS)[::-1]):
+            log = args.out / f"variant_{i}.log"
+            runs.append({"variant": name,
+                         "times": _child_times(trees[name], log)})
+            print(json.dumps(runs[-1]), flush=True)
+    else:
+        trees = {"parent": args.parent.resolve(), "change": ROOT}
+        for i, label in enumerate(("parent", "change", "change", "parent")):
+            log = args.out / f"smoke_{i}_{label}.log"
+            rc = _run([sys.executable, "chip_smoke.py"], trees[label], log)
+            runs.append({"run": i, "tree": label, "chip_smoke_rc": rc,
+                         **_smoke_numbers(log),
+                         "times": _child_times(
+                             trees[label], args.out / f"times_{i}_{label}.log")})
+            print(json.dumps(runs[-1]), flush=True)
+    card = smi()
+    (args.out / "summary.json").write_text(json.dumps(
+        {"card": card, "runs": runs}, indent=1))
+    print(card)
+    return 0 if all(r.get("chip_smoke_rc", 0) == 0 for r in runs) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
