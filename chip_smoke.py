@@ -18,11 +18,16 @@ imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
    every dilation of the 720p frame and at the training volumes; their rows
    also give ``device_ms``, the same calls queued behind a device sleep
    (``time_ms(..., queued=True)``), so that the events read device time
-   alone.
+   alone.  So do the bf16 32 -> 32 stride-2 convs, K2 (3x3) and K2-4x4
+   (``csrc/conv_s2_tc.cuh``), checked also on ragged batches and timed at
+   their other 720p levels, and K4 (``csrc/dw_tc.cuh``), timed at every
+   dilation and at the v2 / v3 shapes.
 3. train kernels: K4 (``dw_reduce``, 2D and 3D) and the channel pairs the
    backward adds to K1 and K3, against their plain versions at every shape
-   of the 4 x 480 x 640 training step, float32 and bfloat16; K4 timed beside
-   its plain version and one cuDNN weight-gradient call.
+   of the 4 x 480 x 640 training step, float32 and bfloat16; the
+   tensor-core K4 (bf16 32 -> 32) also at the v2 / v3 shapes and ragged
+   ones, each launched twice for the same bits; K4 timed beside its plain
+   version and one cuDNN weight-gradient call.
 4. autograd: ``flat_conv3x3`` and ``flat_conv3d`` backward (dx, dW) against
    the plain backward of the same functions, float32 and bfloat16.
 5. model: v1 from ``configure/stereo_net_config.json`` with seeded weights
@@ -177,19 +182,26 @@ REPLACES = {
     "conv3x3_s2": "realtime_stereo_matcher_tpu/kernels/train_conv.py:401",
 }
 SOURCES = {
-    # the timed bf16 32 -> 32 rows run the tensor-core core (entry points in
-    # csrc/conv3x3.cu and csrc/conv3d.cu)
+    # the timed bf16 32 -> 32 rows run the tensor-core kernels (entry points
+    # in csrc/conv3x3.cu, csrc/conv3d.cu and csrc/dw_reduce.cu)
     "fused_conv3x3": "realtime_stereo_matcher_tpu_torch/csrc/conv_tc.cuh",
-    "fused_conv3x3_s2": "realtime_stereo_matcher_tpu_torch/csrc/conv3x3.cu",
-    "fused_conv4x4_s2": "realtime_stereo_matcher_tpu_torch/csrc/conv3x3.cu",
+    "fused_conv3x3_s2": "realtime_stereo_matcher_tpu_torch/csrc/conv_s2_tc.cuh",
+    "fused_conv4x4_s2": "realtime_stereo_matcher_tpu_torch/csrc/conv_s2_tc.cuh",
     "fused_conv3d": "realtime_stereo_matcher_tpu_torch/csrc/conv_tc.cuh",
-    "dw_reduce": "realtime_stereo_matcher_tpu_torch/csrc/dw_reduce.cu",
+    "dw_reduce": "realtime_stereo_matcher_tpu_torch/csrc/dw_tc.cuh",
     "conv3x3_s2": "realtime_stereo_matcher_tpu_torch/kernels/train_conv.py",
 }
 # the design of the kernels that carry the bf16 32 -> 32 calls (the timed
 # rows); float32 and the narrow pairs stay on the CUDA-core template
-TC_DESIGN = {"fused_conv3x3": "tensor cores (mma.sync), cp.async",
-             "fused_conv3d": "tensor cores (mma.sync), cp.async"}
+TC_DESIGN = {
+    "fused_conv3x3": "tensor cores (mma.sync), cp.async",
+    "fused_conv3x3_s2": "tensor cores (mma.sync), cp.async, input rows "
+                        "staged as column-parity planes",
+    "fused_conv4x4_s2": "tensor cores (mma.sync), cp.async, input rows "
+                        "staged as column-parity planes",
+    "fused_conv3d": "tensor cores (mma.sync), cp.async",
+    "dw_reduce": "tensor cores (mma.sync, both operands by ldmatrix.trans), "
+                 "cp.async; one partial a block, summed in a fixed order"}
 # device clock cycles queued ahead of a device-time run (~50 ms at 1.98 GHz)
 SLEEP_CYCLES = 100_000_000
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -382,15 +394,19 @@ def _nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def add_bounds(rows: dict, peaks) -> dict:
-    """Each row's bound: the larger of its bytes over the memory rate and its
-    operations over the bf16 tensor-core rate, and which of the two it is."""
+def bound(nbytes: int, flops: int, peaks) -> dict:
+    """The larger of ``nbytes`` over the memory rate and ``flops`` over the
+    bf16 tensor-core rate (ms), and which of the two it is."""
     bw, flops_peak = peaks
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / flops_peak * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def add_bounds(rows: dict, peaks) -> dict:
+    """Each row's bound (:func:`bound` of its bytes and operations)."""
     for row in rows.values():
-        t_bytes = row["bytes"] / bw * 1e3
-        t_ops = row["flops"] / flops_peak * 1e3
-        row["bound_ms"] = max(t_bytes, t_ops)
-        row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        row.update(bound(row["bytes"], row["flops"], peaks))
     return rows
 
 
@@ -607,17 +623,96 @@ def check_tc_kernels(device) -> dict:
         ref = fused_conv3d_plain(x.float(), wt.float(), one, zero, relu=False)
         note("fused_conv3d", _compare(got, ref, TOL_BF16,
                                       f"tc fused_conv3d dx {vol}"))
-    log(f"  tensor-core kernels: {2 * len(k1)} K1 and {2 * len(k3)} K3 "
-        f"cases within tolerance in torch.bfloat16")
+    s2 = s2_cases()
+    for (n, h, w), taps in s2:
+        args = _operands((n, h, w, 32), (taps, taps, 32, 32), 32,
+                         torch.bfloat16, device, gen)
+        if taps == 4:
+            name, got = "fused_conv4x4_s2", fused_conv4x4_s2(*args, act=0.2)
+            ref = fused_conv4x4_s2_plain(*(a.float() for a in args), act=0.2)
+        else:
+            name = "fused_conv3x3_s2"
+            got = fused_conv3x3(*args, stride=2, act="relu")
+            ref = fused_conv3x3_plain(*(a.float() for a in args), stride=2,
+                                      act="relu")
+        note(name, _compare(got, ref, TOL_BF16, f"tc {name} {n}x{h}x{w}"))
+    log(f"  tensor-core kernels: {2 * len(k1)} K1, {2 * len(k3)} K3 and "
+        f"{len(s2)} K2 / K2-4x4 cases within tolerance in torch.bfloat16")
     return worst
 
 
-def time_tc_kernels(device) -> dict:
+def s2_cases() -> list:
+    """((n, h, w), taps) of the tensor-core K2 (3x3) and K2-4x4 beyond the
+    720p frames' (which ``check_kernels`` and ``check_v3_kernels`` hold):
+    ragged batches, odd and even sizes, widths no 32-column strip divides."""
+    return [((n, h, w), taps) for taps in (3, 4)
+            for n, h, w in ((3, 37, 53), (2, 38, 70), (1, 9, 66),
+                            (2, 181, 321))]
+
+
+def dw_tc_cases() -> list[dict]:
+    """The tensor-core K4's launches: every bf16 32 -> 32 shape of the v1
+    step (``dw_cases``) and of the v2 / v3 step (batch 8: refine levels
+    240 x 320 to 60 x 80 at dilations 1-8, the encoder's 30 x 40, the
+    (8, 24, 30, 40) volume), then ragged ones (odd sizes, widths no strip
+    divides, depths 5 and 7)."""
+    cases = [dict(c, batch=TRAIN_B) for c in dw_cases()
+             if (c["cin"], c["cout"]) == (32, 32)]
+    h, w = TRAIN_HW_V23
+    for k in (0, 1, 2):
+        cases += [dict(hw=(h >> k, w >> k), dil=d, batch=TRAIN_B_V23)
+                  for d in (1, 2, 4, 8)]
+    cases += [dict(hw=(h >> 3, w >> 3), dil=1, batch=TRAIN_B_V23),
+              dict(vol=(24, h >> 3, w >> 3), batch=TRAIN_B_V23)]
+    cases += [dict(hw=(37, 53), dil=1, batch=3), dict(hw=(37, 53), dil=8,
+                                                      batch=3),
+              dict(hw=(5, 130), dil=2, batch=1), dict(hw=(61, 83), dil=4,
+                                                      batch=2),
+              dict(vol=(5, 17, 33), batch=2), dict(vol=(7, 9, 21), batch=1)]
+    for c in cases:
+        c.update(cin=32, cout=32)
+    return cases
+
+
+def check_dw_tc(device) -> dict:
+    """The tensor-core K4 (bf16 32 -> 32) against its plain version at
+    ``dw_tc_cases()`` within ``TOL_DW_BF16`` of the output's scale, each
+    launched twice on the same inputs: the two must be the same bits."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    worst = {("dw_reduce", "bf16"): 0.0, ("dw_reduce", "bf16", "over scale"):
+             0.0}
+    for case in dw_tc_cases():
+        x, g = _dw_operands(case, torch.bfloat16, device, gen, case["batch"])
+        if "vol" in case:
+            got, again = dw_reduce3d(x, g), dw_reduce3d(x, g)
+            ref = dw_reduce3d_plain(x.float(), g.float())
+        else:
+            got, again = dw_reduce(x, g, case["dil"]), dw_reduce(x, g,
+                                                                 case["dil"])
+            ref = dw_reduce_plain(x.float(), g.float(), case["dil"])
+        err, rel = _compare_scaled(got, ref, TOL_DW_BF16,
+                                   f"tc dw_reduce {case}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"tc dw_reduce {case}: two launches on the "
+                                 f"same inputs differ")
+        worst[("dw_reduce", "bf16")] = max(worst[("dw_reduce", "bf16")], err)
+        key = ("dw_reduce", "bf16", "over scale")
+        worst[key] = max(worst[key], rel)
+    log(f"  tensor-core K4: {len(dw_tc_cases())} cases within tolerance, "
+        f"each the same bits on a second launch")
+    return worst
+
+
+def time_tc_kernels(device, peaks) -> dict:
     """The tensor-core kernels at their other main-path shapes: K1 at
     720 x 1280 +residual for each dilation (the timed row is dilation 1),
-    K3 at the 720p and training volumes; each beside cuDNN's bf16 call."""
+    K3 at the 720p and training volumes, K2 and K2-4x4 at their smaller
+    720p levels, K4 at dilations 2, 4 and 8 of the v1 step's largest launch
+    and at the v2 / v3 step's largest 2D and 3D launches; each beside
+    cuDNN's bf16 call (K2, K2-4x4 and K4 also with their bound)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
-    out = {"fused_conv3x3": {}, "fused_conv3d": {}}
+    out = {"fused_conv3x3": {}, "fused_conv3d": {}, "fused_conv3x3_s2": {},
+           "fused_conv4x4_s2": {}, "dw_reduce": {}}
     for d in (2, 4, 8):
         case = dict(hw=HW, cin=32, cout=32, stride=1, dil=d, act="relu",
                     res=True)
@@ -635,6 +730,48 @@ def time_tc_kernels(device) -> dict:
         out["fused_conv3d"]["x".join(map(str, vol))] = _tc_times(
             lambda: fused_conv3d(*args, **kw),
             lambda: F.conv3d(x_ncdhw, w_oidhw, padding=1))
+    for name, taps, hw in (("fused_conv3x3_s2", 3, (HW[0] // 4, HW[1] // 4)),
+                           ("fused_conv4x4_s2", 4, (HW[0] // 2, HW[1] // 2)),
+                           ("fused_conv4x4_s2", 4, (HW[0] // 4, HW[1] // 4))):
+        args = _operands((1, *hw, 32), (taps, taps, 32, 32), 32,
+                         torch.bfloat16, device, gen)
+        fn = ((lambda: fused_conv4x4_s2(*args, act=0.2)) if taps == 4 else
+              (lambda: fused_conv3x3(*args, stride=2)))
+        y = fn()
+        w_oihw = args[1].permute(3, 2, 0, 1).contiguous()
+        x_nchw = args[0].permute(0, 3, 1, 2)
+        out[name][f"{hw[0]}x{hw[1]} -> {y.shape[1]}x{y.shape[2]}"] = dict(
+            _tc_times(fn, lambda: F.conv2d(x_nchw, w_oihw, stride=2,
+                                           padding=1)),
+            **bound(_nbytes(*args, y), 2 * y.numel() * taps * taps * 32,
+                    peaks))
+    dw = [(f"{TRAIN_B}x{TRAIN_HW[0]}x{TRAIN_HW[1]} d{d}",
+           dict(hw=TRAIN_HW, dil=d), TRAIN_B) for d in (2, 4, 8)]
+    dw += [(f"{TRAIN_B_V23}x{TRAIN_HW_V23[0]}x{TRAIN_HW_V23[1]} d1",
+            dict(hw=TRAIN_HW_V23, dil=1), TRAIN_B_V23),
+           (f"{TRAIN_B_V23}x24x{TRAIN_HW_V23[0] >> 3}x{TRAIN_HW_V23[1] >> 3}",
+            dict(vol=(24, TRAIN_HW_V23[0] >> 3, TRAIN_HW_V23[1] >> 3)),
+            TRAIN_B_V23)]
+    for key, case, batch in dw:
+        x, g = _dw_operands(dict(case, cin=32, cout=32), torch.bfloat16,
+                            device, gen, batch)
+        x_nc, g_nc = x.movedim(-1, 1), g.movedim(-1, 1)
+        if "vol" in case:
+            fn = lambda: dw_reduce3d(x, g)
+            lib = lambda: torch.nn.grad.conv3d_weight(
+                x_nc, (32, 32, 3, 3, 3), g_nc, padding=1)
+            taps = 27
+        else:
+            d = case["dil"]
+            fn = lambda: dw_reduce(x, g, d)
+            lib = lambda: torch.nn.grad.conv2d_weight(
+                x_nc, (32, 32, 3, 3), g_nc, padding=d, dilation=d)
+            taps = 9
+        y = fn()
+        out["dw_reduce"][key] = dict(
+            _tc_times(fn, lib),
+            **bound(_nbytes(x, g, y), 2 * (x.numel() // 32) * taps * 32 * 32,
+                    peaks))
     return out
 
 
@@ -666,8 +803,8 @@ def time_train_kernels(device, peaks) -> dict:
             taps = 9
         out = fn()
         pixels = x.numel() // 32
-        rows[key] = dict(shape=shape, ms=time_ms(fn), plain_ms=time_ms(plain),
-                         library_ms=time_ms(lib), bytes=_nbytes(x, g, out),
+        rows[key] = dict(shape=shape, plain_ms=time_ms(plain),
+                         **_tc_times(fn, lib), bytes=_nbytes(x, g, out),
                          flops=2 * pixels * taps * 32 * 32)
     for cin, cout in ((32, 4), (1, 32)):
         args = _operands((TRAIN_B, *TRAIN_HW, cin), (3, 3, cin, cout), cout,
@@ -924,10 +1061,9 @@ def time_v3_kernels(device, peaks) -> dict:
     x_nchw = x.permute(0, 3, 1, 2)
     rows["fused_conv4x4_s2"] = dict(
         shape=f"{HW[0]}x{HW[1]} -> {out.shape[1]}x{out.shape[2]} 32->32",
-        ms=time_ms(lambda: fused_conv4x4_s2(*args, act=0.2)),
         plain_ms=time_ms(lambda: fused_conv4x4_s2_plain(*args, act=0.2)),
-        library_ms=time_ms(lambda: F.conv2d(x_nchw, w_oihw, stride=2,
-                                            padding=1)),
+        **_tc_times(lambda: fused_conv4x4_s2(*args, act=0.2),
+                    lambda: F.conv2d(x_nchw, w_oihw, stride=2, padding=1)),
         bytes=_nbytes(*args, out), flops=2 * out.numel() * 16 * 32)
     args = _operands((1, *HW, 3), (3, 3, 3, 32), 32, torch.bfloat16, device,
                      gen)
@@ -1334,10 +1470,11 @@ def main() -> int:
         worst = check_kernels(device, conv3x3_cases(), conv3d_cases())
         tc_worst = check_tc_kernels(device)
         rows = time_kernels(device, peaks)
-        tc_rows = time_tc_kernels(device)
+        tc_rows = time_tc_kernels(device, peaks)
         log(json.dumps({"tc_kernel_times": tc_rows}))
     with Phase("train kernels"):
         train_worst = check_train_kernels(device)
+        dw_tc_worst = check_dw_tc(device)
         train_rows = time_train_kernels(device, peaks)
         log(json.dumps({"train_kernel_times": train_rows}))
     with Phase("autograd"):
@@ -1380,13 +1517,22 @@ def main() -> int:
         worst[("fused_conv3x3", key)] = max(worst[("fused_conv3x3", key)],
                                             v3_worst[("fused_conv3x3", key)],
                                             v2_worst[("fused_conv3x3", key)])
-        worst[("fused_conv4x4_s2", key)] = v3_worst[("fused_conv4x4_s2", key)]
+        worst[("fused_conv4x4_s2", key)] = max(
+            v3_worst[("fused_conv4x4_s2", key)],
+            tc_worst.get(("fused_conv4x4_s2", key), 0.0))
+        worst[("fused_conv3x3_s2", key)] = max(
+            worst[("fused_conv3x3_s2", key)],
+            tc_worst.get(("fused_conv3x3_s2", key), 0.0))
         worst[("dw_reduce", key)] = max(train_worst[("dw_reduce", key)],
-                                        v2_worst[("dw_reduce", key)])
+                                        v2_worst[("dw_reduce", key)],
+                                        dw_tc_worst.get(("dw_reduce", key),
+                                                        0.0))
         worst[("conv3x3_s2", key)] = v2_worst[("conv3x3_s2", key)]
     over_scale = {
         "dw_reduce": {key: max(train_worst[("dw_reduce", key, "over scale")],
-                               v2_worst[("dw_reduce", key, "over scale")])
+                               v2_worst[("dw_reduce", key, "over scale")],
+                               dw_tc_worst.get(("dw_reduce", key,
+                                                "over scale"), 0.0))
                       for key in ("f32", "bf16")},
         "conv3x3_s2": {f"{part} {key}": v2_worst[("conv3x3_s2", key, part,
                                                   "over scale")]

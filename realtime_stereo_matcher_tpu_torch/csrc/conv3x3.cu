@@ -28,9 +28,12 @@
 // What bounds it on an H100: at 720x1280, 32 -> 32 channels in bf16 the conv
 // does 17.0 GFLOP on 118 MB (177 MB with the residual), about 96 FLOP per
 // byte, below the card's ~295 FLOP/byte ridge for bf16 tensor cores: on
-// tensor cores it is bound by memory (35-53 us at 3.35 TB/s).
+// tensor cores it is bound by memory (35-53 us at 3.35 TB/s).  The stride-2
+// convs read 4x what they write: the 4x4 at 720x1280 -> 360x640, 32 -> 32 in
+// bf16, does 7.55 GFLOP on 73.7 MB (22 us on memory, 102 FLOP per byte); the
+// 3x3 at 360x640 -> 180x320 1.06 GFLOP on 18.4 MB (5.5 us on memory).
 //
-// Two designs, chosen by dtype and channel pair:
+// Three designs, chosen by stride, dtype and channel pair:
 //   * bf16 32 -> 32, stride 1 (50 of the 56 K1 launches of a 720p frame):
 //     rsm_conv3x3_tc, the tensor-core implicit GEMM of conv_tc.cuh.  A block
 //     owns a 64-column strip and walks down it 8 output rows a step, keeping
@@ -44,13 +47,19 @@
 //     on an H100 (PERF.md): ~0.58 of its bound at dilations 1 and 2 (two
 //     blocks per SM); at dilations 4 and 8 the ring (137 and 190 KB) leaves
 //     one 8-warp block per SM, and those launches lose to cuDNN.
-//   * float32, and every narrow pair (4, 3, 7 or 1 channels in or out), and
-//     stride 2: the CUDA-core template of conv_common.cuh, float32 FMAs
-//     (67 TFLOP/s peak), bound by those operations.  float32 stays there so
-//     that its checks hold at ~3e-6 (TF32 tensor cores would not); a narrow
-//     pair would waste most of each MMA.  The 4x4 stride-2 conv (720x1280
-//     -> 360x640, 32 -> 32 in bf16: 7.55 GFLOP on 73.7 MB, 22 us on memory)
-//     is FMA-bound there (>= 0.11 ms).
+//   * bf16 32 -> 32, stride 2 (K2: 4 of the 6 stride-2 launches of a v1 or
+//     v2 frame; K2-4x4: all 6 of a v3 frame): rsm_conv_s2_tc, the
+//     tensor-core kernel of conv_s2_tc.cuh (KT = 3 or 4 taps a side): the
+//     same implicit GEMM with the weights resident, each staged input row
+//     de-interleaved by column parity so that a stride-2 A fragment reads 16
+//     consecutive staged pixels without bank conflicts, and a ring of
+//     4 * 8 + KT - 2 input rows for 8 x 32 output tiles.
+//   * float32, and every narrow pair (4, 3, 7 or 1 channels in or out,
+//     among them K2's 3 -> 32 first encoder stage): the CUDA-core template
+//     of conv_common.cuh, float32 FMAs (67 TFLOP/s peak), bound by those
+//     operations.  float32 stays there so that its checks hold at ~3e-6
+//     (TF32 tensor cores would not); a narrow pair would waste most of each
+//     MMA.
 //
 // C interface (bound with ctypes by kernels/_build.py): pointers and the
 // stream are void*, the rest int; the return value is the cudaError_t of the
@@ -58,6 +67,7 @@
 #include <type_traits>
 
 #include "conv_common.cuh"
+#include "conv_s2_tc.cuh"
 #include "conv_tc.cuh"
 
 namespace {
@@ -86,7 +96,8 @@ cudaError_t dispatch(const void* x, const void* w, const void* scale,
     RSM_CASE(7, 32)  // the v2 refine entry
     RSM_CASE(32, 7)  // dx of the v2 refine entry (training)
   } else {
-    RSM_CASE(32, 32)
+    // bf16 32 -> 32 runs on the tensor cores (rsm_conv_s2_tc)
+    if constexpr (std::is_same_v<T, float>) RSM_CASE(32, 32)
     RSM_CASE(3, 32)
   }
 #undef RSM_CASE
@@ -142,7 +153,8 @@ int rsm_conv3x3_tc(const void* x, const void* w, const void* scale,
                                alpha, static_cast<cudaStream_t>(stream));
 }
 
-// The 4x4 stride-2 TF-SAME conv: pad_lo = 1, Ho = ceil(H / 2), 32 -> 32.
+// The 4x4 stride-2 TF-SAME conv in float32: pad_lo = 1, Ho = ceil(H / 2),
+// 32 -> 32 (bf16 runs on the tensor cores, rsm_conv_s2_tc with taps = 4).
 int rsm_conv4x4_s2(const void* x, const void* w, const void* scale,
                    const void* bias, void* out, int dtype, int n, int h,
                    int wd, int cin, int cout, int ho, int wo, int act,
@@ -151,14 +163,33 @@ int rsm_conv4x4_s2(const void* x, const void* w, const void* scale,
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cin != 32 || cout != 32) return cudaErrorInvalidValue;
-  if (dtype == rsm::kBFloat16)
-    return rsm::launch_conv<__nv_bfloat16, 32, 32, 2, 1, 4>(
-        x, w, scale, bias, nullptr, out, n, 1, h, wd, ho, wo, 1, 1, act,
-        alpha, st);
   if (dtype == rsm::kFloat32)
     return rsm::launch_conv<float, 32, 32, 2, 1, 4>(
         x, w, scale, bias, nullptr, out, n, 1, h, wd, ho, wo, 1, 1, act,
         alpha, st);
+  return cudaErrorInvalidValue;
+}
+
+// bf16 32 -> 32 stride 2 on the tensor cores, `taps` (3 or 4) a side, by
+// the plan of kernels/conv3x3.py (conv_s2_tc_plan): tile th x tw output
+// pixels, `ring` input rows, `steps` row tiles per block, grid (gx, gy, gz),
+// `smem` dynamic shared bytes.
+int rsm_conv_s2_tc(const void* x, const void* w, const void* scale,
+                   const void* bias, void* out, int n, int h, int wd, int ho,
+                   int wo, int taps, int th, int tw, int ring, int steps,
+                   int gx, int gy, int gz, int smem, int act, float alpha,
+                   int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (taps == 4)
+    return rsm::tc::launch_s2_tc<4>(x, w, scale, bias, out, n, h, wd, ho, wo,
+                                    th, tw, ring, steps, gx, gy, gz, smem,
+                                    act, alpha, st);
+  if (taps == 3)
+    return rsm::tc::launch_s2_tc<3>(x, w, scale, bias, out, n, h, wd, ho, wo,
+                                    th, tw, ring, steps, gx, gy, gz, smem,
+                                    act, alpha, st);
   return cudaErrorInvalidValue;
 }
 

@@ -43,6 +43,26 @@ constexpr int kBlockPix = kThreads * kPix;
 enum Act { kActNone = 0, kActRelu = 1, kActLeaky = 2 };
 enum DType { kFloat32 = 0, kBFloat16 = 1 };
 
+// Raises `kernel`'s dynamic shared-memory opt-in (above 48 KB) on the
+// current device to `smem` bytes where the plans launched so far needed
+// less; `opted`, one entry per device and static at the caller, remembers
+// what was set.  A card that holds less refuses it here.
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, int smem, int (&opted)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (smem > opted[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    opted[dev] = smem;
+  }
+  return cudaSuccess;
+}
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);

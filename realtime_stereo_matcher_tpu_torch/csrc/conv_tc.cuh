@@ -360,20 +360,9 @@ cudaError_t launch_tc(const void* x, const void* w, const void* scale,
       KD == 1 ? gx == tiles_w && gy == (tiles_h + steps - 1) / steps
               : gx == tiles_w * tiles_h && gy == (d + steps - 1) / steps;
   if (!grid_ok) return cudaErrorInvalidValue;
-  // the opt-in above 48 KB, per device and instantiation, raised to the
-  // largest plan launched; a card that holds less refuses it here
-  static int opted[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static int opted[64] = {};  // per device, for this instantiation
+  const cudaError_t err = opt_in_smem(conv_tc_kernel<KD>, smem, opted);
   if (err != cudaSuccess) return err;
-  if (dev >= 64) return cudaErrorInvalidDevice;
-  if (smem > opted[dev]) {
-    err = cudaFuncSetAttribute(conv_tc_kernel<KD>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    opted[dev] = smem;
-  }
   conv_tc_kernel<KD><<<dim3(gx, gy, gz), kThreadsTc, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(scale),

@@ -19,10 +19,29 @@
 //   head 32 -> 1; 7 channels (14-byte bf16 pixels) are staged with scalar
 //   loads.
 //
-// Design.  The TPU kernel streamed the whole image through one core and kept
-// its sum in VMEM from one grid step to the next; blocks on Hopper run in
-// parallel and in no order, so the sum is taken in two passes, with no
-// atomics (the result is the same bits on every run):
+// What bounds it on an H100: the largest 2D launch of a training step, 4 x
+// 480 x 640 at 32 -> 32 channels in bf16, reads 157 MB and does 22.6 GFLOP,
+// 144 FLOP per byte, below the ~295 FLOP/byte ridge of bf16 tensor cores:
+// bound by memory, 0.047 ms at 3.35 TB/s.  The largest 3D launch, (4, 24,
+// 60, 80), reads 59 MB and does 25.5 GFLOP (432 FLOP per byte): bound by
+// operations, 0.026 ms at 989 TFLOP/s.  On the CUDA cores' float32 FMAs
+// (67 TFLOP/s) neither can go below 0.34 / 0.38 ms.
+//
+// Two designs, chosen by dtype and channel pair (kernels/train_conv.py):
+//   * bf16 32 -> 32, 2D at every dilation and 3D (all but 6 of the 59
+//     launches of a v1 or v2 training step): rsm_dw_reduce_tc, the
+//     tensor-core kernel of dw_tc.cuh, a transposed implicit GEMM (M = tap x
+//     ci, N = co, K = pixels) on mma.sync with x and g staged by cp.async;
+//     one partial dW per block (about one block an SM), then dw_sum_kernel.
+//   * float32, and the narrow pairs 4 -> 32, 7 -> 32 and 32 -> 1: the
+//     CUDA-core kernel below, float32 FMAs, so that the float32 checks hold
+//     at ~1e-6 relative (TF32 tensor cores would not) and a narrow pair
+//     wastes no MMA rows.
+//
+// The CUDA-core design.  The TPU kernel streamed the whole image through one
+// core and kept its sum in VMEM from one grid step to the next; blocks on
+// Hopper run in parallel and in no order, so the sum is taken in two passes,
+// with no atomics (the result is the same bits on every run):
 //   1. dw_partial_kernel: each block owns a tile of kTW output columns by a
 //      run of rows of one image plane.  For each output row it stages, in
 //      shared memory, the input rows that the 3 (or 3x3) row taps read
@@ -33,16 +52,9 @@
 //      The block writes its partial dW (one per pixel slice) to a workspace.
 //   2. dw_sum_kernel sums the partials in a fixed order.
 // The wrapper (kernels/train_conv.py) allocates the workspace with the size
-// rsm_dw_workspace returns.
-//
-// What bounds it on an H100: the largest launch of a training step, 4 x 480
-// x 640 at 32 -> 32 channels in bf16, reads 157 MB and does 22.6 GFLOP,
-// 144 FLOP per byte, below the ~295 FLOP/byte ridge of bf16 tensor cores: a
-// tensor-core kernel would be bound by memory (0.047 ms at 3.35 TB/s).  This
-// first kernel runs float32 FMAs on the CUDA cores (67 TFLOP/s peak), so it
-// is bound by those operations (>= 0.34 ms for that launch).  An MMA design
-// that reaches the memory bound is later work.
+// rsm_dw_workspace returns (rsm_dw_reduce_tc: the size of its plan).
 #include "conv_common.cuh"
+#include "dw_tc.cuh"
 
 namespace {
 
@@ -258,6 +270,58 @@ cudaError_t launch(const void* x, const void* g, float* work, float* out,
   return cudaGetLastError();
 }
 
+// One CUDA-core launch in float32, or in bf16 for the narrow pairs (bf16
+// 32 -> 32 runs on the tensor cores, rsm_dw_reduce_tc).
+template <int KD, int CI, int CO>
+cudaError_t dispatch(const void* x, const void* g, float* work, float* out,
+                     int dtype, int n, int d, int h, int w, int dil,
+                     cudaStream_t st) {
+  if (dtype == rsm::kFloat32)
+    return launch<float, KD, CI, CO>(x, g, work, out, n, d, h, w, dil, st);
+  if constexpr (CI != 32 || CO != 32) {
+    if (dtype == rsm::kBFloat16)
+      return launch<__nv_bfloat16, KD, CI, CO>(x, g, work, out, n, d, h, w,
+                                               dil, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The tensor-core kernel by a plan of kernels/train_conv.py (dw_tc_plan),
+// then the fixed-order sum of its gx * gy partials.  cudaErrorInvalidValue
+// for a plan this kernel does not take.
+template <int KD>
+cudaError_t launch_dw_tc(const void* x, const void* g, float* work,
+                         long long work_floats, float* out, int n, int d,
+                         int h, int w, int dil, int th, int tw, int ring,
+                         int steps, int gx, int gy, int gz, int smem,
+                         cudaStream_t st) {
+  using namespace rsm::tc;
+  const int rows = n * d * h;
+  const int tiles = (rows + kDwTH - 1) / kDwTH;
+  // a staged row is at most one 16-byte chunk a thread
+  const bool tile_ok = th == kDwTH && tw >= 16 && tw % 16 == 0 &&
+                       (tw + 2 * dil) * 4 <= kDwThreads &&
+                       ring == 2 * th + 2 * dil && steps >= 1;
+  const bool grid_ok = gx == (w + tw - 1) / tw &&
+                       gy == (tiles + steps - 1) / steps && gy <= 65535 &&
+                       gz == KD;
+  if (!tile_ok || !grid_ok || smem != dw_smem_bytes(tw, dil, ring) ||
+      work_floats != (long long)gx * gy * gz * kDwOut)
+    return cudaErrorInvalidValue;
+  static int opted[64] = {};  // per device, for this instantiation
+  cudaError_t err = rsm::opt_in_smem(dw_tc_kernel<KD>, smem, opted);
+  if (err != cudaSuccess) return err;
+  dw_tc_kernel<KD><<<dim3(gx, gy, gz), kDwThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(g), work, d, h, w, rows, dil, tw,
+      ring, steps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dw_sum_kernel<<<(KD * kDwOut + 31) / 32, dim3(32, 8), 0, st>>>(
+      work, out, gx * gy, KD * kDwOut);
+  return cudaGetLastError();
+}
+
 // The (KD, CI, CO) cases this file instantiates.
 #define RSM_DW_CASES(X)                                           \
   X(1, 32, 32) X(1, 4, 32) X(1, 7, 32) X(1, 32, 1) X(3, 32, 32) \
@@ -297,18 +361,34 @@ int rsm_dw_reduce(const void* x, const void* g, void* work, void* out,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wk = static_cast<float*>(work);
   float* o = static_cast<float*>(out);
-#define RSM_CASE(KD, CI, CO)                                                 \
-  if (kd == KD && cin == CI && cout == CO) {                                 \
-    if (dtype == rsm::kBFloat16)                                             \
-      return launch<__nv_bfloat16, KD, CI, CO>(x, g, wk, o, n, d, h, w, dil, \
-                                               st);                          \
-    if (dtype == rsm::kFloat32)                                              \
-      return launch<float, KD, CI, CO>(x, g, wk, o, n, d, h, w, dil, st);    \
-    return cudaErrorInvalidValue;                                            \
-  }
+#define RSM_CASE(KD, CI, CO)                                           \
+  if (kd == KD && cin == CI && cout == CO)                             \
+    return dispatch<KD, CI, CO>(x, g, wk, o, dtype, n, d, h, w, dil, st);
   RSM_DW_CASES(RSM_CASE)
 #undef RSM_CASE
   return cudaErrorInvalidValue;
+}
+
+// bf16 32 -> 32 on the tensor cores by the plan of kernels/train_conv.py
+// (dw_tc_plan): kDwTH-row steps of `tw`-column strips, `ring` x rows,
+// `steps` steps a block, grid (gx, gy, gz = kd), `smem` dynamic shared
+// bytes; work holds work_floats = gx * gy * kd * 9216 floats.
+int rsm_dw_reduce_tc(const void* x, const void* g, void* work, void* out,
+                     long long work_floats, int n, int d, int h, int w,
+                     int kd, int dil, int th, int tw, int ring, int steps,
+                     int gx, int gy, int gz, int smem, int device,
+                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (!valid_args(kd, dil)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* wk = static_cast<float*>(work);
+  float* o = static_cast<float*>(out);
+  return kd == 1
+             ? launch_dw_tc<1>(x, g, wk, work_floats, o, n, d, h, w, dil, th,
+                               tw, ring, steps, gx, gy, gz, smem, st)
+             : launch_dw_tc<3>(x, g, wk, work_floats, o, n, d, h, w, dil, th,
+                               tw, ring, steps, gx, gy, gz, smem, st);
 }
 
 }  // extern "C"

@@ -47,6 +47,11 @@ _CONV = re.compile(r"conv_kernel<([^,]+),\s*(\d+),\s*(\d+),\s*(\d+),"
 _CONV_TC = re.compile(r"conv_tc_kernel<\s*(?:\(int\)\s*)?(\d+)")
 # dw_partial_kernel<T, KD, CI, CO>
 _DW = re.compile(r"dw_partial_kernel<([^,]+),\s*(\d+),\s*(\d+),\s*(\d+)>")
+# rsm::tc::dw_tc_kernel<KD> and rsm::tc::conv_s2_tc_kernel<KT>: bf16 32 -> 32
+# K4 (2D, 3D) and the stride-2 convs (KT = 3: K2, KT = 4: K2-4x4) on the
+# tensor cores
+_DW_TC = re.compile(r"dw_tc_kernel<\s*(?:\(int\)\s*)?(\d+)")
+_S2_TC = re.compile(r"conv_s2_tc_kernel<\s*(?:\(int\)\s*)?(\d+)")
 
 
 def kernel_group(name: str) -> str:
@@ -56,6 +61,13 @@ def kernel_group(name: str) -> str:
     if m:
         kernel = "fused_conv3d" if m.group(1) == "3" else "fused_conv3x3"
         return f"{kernel} 32->32"
+    m = _S2_TC.search(name)
+    if m:
+        kernel = "fused_conv4x4_s2" if m.group(1) == "4" else "fused_conv3x3_s2"
+        return f"{kernel} 32->32"
+    m = _DW_TC.search(name)
+    if m:
+        return f"dw_reduce{' 3D' if m.group(1) == '3' else ''} 32->32"
     m = _CONV.search(name)
     if m:
         _, ci, co, s, kd, k = m.groups()

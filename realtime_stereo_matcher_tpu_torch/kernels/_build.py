@@ -56,6 +56,12 @@ _SIGNATURES = {
     "rsm_conv3d": [_P] * 5 + [_I] * 9 + [_P],
     # x, g, work, out, dtype, n, d, h, w, cin, cout, kd, dil, device, stream
     "rsm_dw_reduce": [_P] * 4 + [_I] * 10 + [_P],
+    # x, w, scale, bias, out, n, h, w, ho, wo, taps, th, tw, ring, steps,
+    # grid x, y, z, shared bytes, act, alpha, device, stream
+    "rsm_conv_s2_tc": [_P] * 5 + [_I] * 15 + [ctypes.c_float, _I, _P],
+    # x, g, work, out, work floats, n, d, h, w, kd, dil, th, tw, ring, steps,
+    # grid x, y, z, shared bytes, device, stream
+    "rsm_dw_reduce_tc": [_P] * 4 + [ctypes.c_longlong] + [_I] * 15 + [_P],
 }
 
 

@@ -14,16 +14,19 @@ On a CUDA tensor it launches a hand-written kernel of ``csrc/conv3x3.cu``
 (stride 1 counts as ``fused_conv3x3``, stride 2 as ``fused_conv3x3_s2``, the
 two TPU kernels it replaces); on a CPU tensor it runs
 :func:`fused_conv3x3_plain`.  There is no fallback from the one to the other.
-Which kernel runs is decided by dtype and channel pair: bf16 32 -> 32 at
-stride 1 runs the tensor-core kernel (``rsm_conv3x3_tc``, ``csrc/conv_tc.cuh``)
-by the tile plan of :func:`conv3x3_tc_plan`; float32, the narrow pairs and
-stride 2 run the CUDA-core template (``rsm_conv3x3``, ``csrc/conv_common.cuh``).
+Which kernel runs is decided by dtype and channel pair: bf16 32 -> 32 runs on
+the tensor cores, at stride 1 ``rsm_conv3x3_tc`` (``csrc/conv_tc.cuh``) by
+the tile plan of :func:`conv3x3_tc_plan`, at stride 2 ``rsm_conv_s2_tc``
+(``csrc/conv_s2_tc.cuh``) by :func:`conv_s2_tc_plan`; float32 and the narrow
+pairs run the CUDA-core template (``rsm_conv3x3``, ``csrc/conv_common.cuh``).
 
 ``fused_conv4x4_s2`` is the v3 U-Net's downsampler, a 4x4 stride-2 conv with
 TF-SAME padding (output pixel X reads input 2X-1 .. 2X+2, so H and W become
 ceil(H / 2) and ceil(W / 2)) and the same epilogue, without a residual.  On
-a CUDA tensor it launches the kernel of ``csrc/conv3x3.cu`` (counted as
-``fused_conv4x4_s2``), on a CPU tensor :func:`fused_conv4x4_s2_plain`.
+a CUDA tensor it launches a kernel of ``csrc/conv3x3.cu`` (counted as
+``fused_conv4x4_s2``): in bf16 the tensor-core ``rsm_conv_s2_tc`` with 4
+taps a side, in float32 the CUDA-core template; on a CPU tensor
+:func:`fused_conv4x4_s2_plain`.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ TC_STAGE_BYTES = 8 * 16 * TC_PIX_BYTES
 SMEM_RESERVED = 1024
 GRID_YZ_MAX = 65535
 K1_TILE = (8, 64)   # output rows x columns of one step (csrc Tile<1>)
+S2_TILE = (8, 32)   # output rows x columns of a stride-2 step (csrc kS2TH/TW)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,6 +148,69 @@ def conv3x3_tc_plan(n: int, h: int, w: int, dilation: int,
                   (tiles_w, -(-tiles_h // steps), n), smem)
 
 
+@dataclasses.dataclass(frozen=True)
+class S2Plan:
+    """The tiling of one stride-2 tensor-core launch (``taps`` 3 or 4 a
+    side), computed here and checked by the C entry point
+    (``csrc/conv_s2_tc.cuh`` ``launch_s2_tc``): a block walks down a strip
+    of ``tw`` output columns, ``th`` output rows a step, ``steps`` steps,
+    with a ring of ``ring`` input rows, each stored as two column-parity
+    planes of ``tw + 2`` pixels; ``smem`` dynamic shared-memory bytes;
+    ``grid`` (x, y, z)."""
+
+    taps: int
+    shape: tuple          # (n, h, w) of the input
+    out_hw: tuple         # (ho, wo)
+    th: int
+    tw: int
+    ring: int
+    steps: int
+    grid: tuple
+    smem: int
+
+
+def s2_ring(taps: int, th: int = S2_TILE[0]) -> int:
+    """Input rows the stride-2 ring holds: a step's 2 th + taps - 2 and the
+    next step's 2 th new ones."""
+    return 4 * th + taps - 2
+
+
+@functools.cache  # called on every launch
+def conv_s2_tc_plan(n: int, h: int, w: int, taps: int, card: Card) -> S2Plan:
+    """Tile plan of the bf16 32 -> 32 stride-2 conv (``taps`` x ``taps``,
+    padding 1 before) on the tensor cores: 8 x 32 output tiles, a ring of
+    ``s2_ring(taps)`` input rows of 2 x 34 pixels beside the resident
+    weights (one block per SM), rows per block chosen so that the launch on
+    ``card`` ends soonest: full waves times the input rows one block loads,
+    counting its first step's twice (no MMA overlaps their arrival, and no
+    second block on the SM does)."""
+    th, tw = S2_TILE
+    ring = s2_ring(taps, th)
+    smem = (taps * taps * 32 + ring * 2 * (tw + 2)) * TC_PIX_BYTES \
+        + TC_STAGE_BYTES
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    tiles_h, tiles_w = -(-ho // th), -(-wo // tw)
+    slots = card.sms * tc_blocks_per_sm(smem, card)
+    steps = _pick_steps(tiles_h, tiles_w * n, slots,
+                        lambda s: 2 * th * (s + 1) + taps - 2)
+    return S2Plan(taps, (n, h, w), (ho, wo), th, tw, ring, steps,
+                  (tiles_w, -(-tiles_h // steps), n), smem)
+
+
+def _launch_s2_tc(x, w, scale, bias, out, taps: int, act_code: int,
+                  alpha: float, name: str) -> None:
+    """One bf16 32 -> 32 stride-2 launch of ``rsm_conv_s2_tc``, counted as
+    ``name``."""
+    n, h, wd, _ = x.shape
+    plan = conv_s2_tc_plan(n, h, wd, taps, card_of(x.device.index))
+    _build.check(_build.library().rsm_conv_s2_tc(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), n, h, wd, *plan.out_hw, taps, plan.th, plan.tw,
+        plan.ring, plan.steps, *plan.grid, plan.smem, act_code, alpha,
+        x.device.index, _build.stream_of(x)), name)
+    _build.LAUNCHES[name] += 1
+
+
 def output_hw(h: int, w: int, stride: int) -> tuple[int, int]:
     """Output size of a 3x3 conv with torch padding = dilation."""
     return ((h - 1) // stride + 1, (w - 1) // stride + 1)
@@ -194,10 +261,11 @@ def fused_conv3x3(x, w, scale, bias, *, stride=1, dilation=1, act="relu",
     Arguments as in :func:`fused_conv3x3_plain`.  On CUDA: x, w and residual
     share one dtype (float32 or bfloat16), scale and bias are float32, all
     are contiguous, and (C_in, C_out) is one of ``SUPPORTED_CHANNELS``.
-    Routing on CUDA, by dtype and channel pair: bf16 ``TC_CHANNELS`` at
-    stride 1 launches the tensor-core kernel (``rsm_conv3x3_tc``) with
-    :func:`conv3x3_tc_plan`; every other call the CUDA-core template
-    (``rsm_conv3x3``).  Both count as ``KERNEL_NAMES[stride]``."""
+    Routing on CUDA, by dtype and channel pair: bf16 ``TC_CHANNELS``
+    launches a tensor-core kernel, at stride 1 ``rsm_conv3x3_tc`` with
+    :func:`conv3x3_tc_plan`, at stride 2 ``rsm_conv_s2_tc`` with
+    :func:`conv_s2_tc_plan`; every other call the CUDA-core template
+    (``rsm_conv3x3``).  All count as ``KERNEL_NAMES[stride]``."""
     if x.device.type == "cpu":
         return fused_conv3x3_plain(x, w, scale, bias, stride=stride,
                                    dilation=dilation, act=act,
@@ -233,6 +301,9 @@ def fused_conv3x3(x, w, scale, bias, *, stride=1, dilation=1, act="relu",
 
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=dev)
     name = KERNEL_NAMES[stride]
+    if x.dtype == torch.bfloat16 and (cin, cout) == TC_CHANNELS and stride == 2:
+        _launch_s2_tc(x, w, scale, bias, out, 3, act_code, alpha, name)
+        return out
     if x.dtype == torch.bfloat16 and (cin, cout) == TC_CHANNELS and stride == 1:
         plan = conv3x3_tc_plan(n, h, wd, dilation, card_of(dev.index))
         rc = _build.library().rsm_conv3x3_tc(
@@ -274,7 +345,9 @@ def fused_conv4x4_s2(x, w, scale, bias, *, act=0.2):
 
     Arguments as in :func:`fused_conv4x4_s2_plain`.  On CUDA: x and w share
     one dtype (float32 or bfloat16), scale and bias are float32, all are
-    contiguous, and (C_in, C_out) is ``CHANNELS_4X4``."""
+    contiguous, and (C_in, C_out) is ``CHANNELS_4X4``.  bf16 launches the
+    tensor-core ``rsm_conv_s2_tc`` (4 taps a side, :func:`conv_s2_tc_plan`),
+    float32 the CUDA-core template (``rsm_conv4x4_s2``)."""
     if x.device.type == "cpu":
         return fused_conv4x4_s2_plain(x, w, scale, bias, act=act)
     if x.device.type != "cuda":
@@ -299,6 +372,9 @@ def fused_conv4x4_s2(x, w, scale, bias, *, act=0.2):
     act_code, alpha = _act_code(act)
 
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=dev)
+    if x.dtype == torch.bfloat16:
+        _launch_s2_tc(x, w, scale, bias, out, 4, act_code, alpha, KERNEL_4X4)
+        return out
     rc = _build.library().rsm_conv4x4_s2(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
         out.data_ptr(), _build.DTYPE_CODES[x.dtype], n, h, wd, cin, cout, ho,

@@ -9,9 +9,13 @@ kernels K4 ``dw_reduce`` and K5 ``flat_conv3x3`` of
 
   float32 whatever the inputs' type.  :func:`dw_reduce3d` is its 3x3x3 form,
   the dW of :func:`~realtime_stereo_matcher_tpu_torch.kernels.train_conv3d.flat_conv3d`.
-  On a CUDA tensor both launch the hand-written kernel of ``csrc/dw_reduce.cu``
-  (counted as ``dw_reduce``); on a CPU tensor they run :func:`dw_reduce_plain`
-  / :func:`dw_reduce3d_plain`.
+  On a CUDA tensor both launch a hand-written kernel of ``csrc/dw_reduce.cu``
+  (counted as ``dw_reduce``, one count a call, its fixed-order sum of
+  partials included): bf16 32 -> 32 the tensor-core kernel
+  (``rsm_dw_reduce_tc``, ``csrc/dw_tc.cuh``) by the plan of
+  :func:`dw_tc_plan`, float32 and the narrow pairs the CUDA-core kernel
+  (``rsm_dw_reduce``); on a CPU tensor they run :func:`dw_reduce_plain` /
+  :func:`dw_reduce3d_plain`.
 * :func:`flat_conv3x3` -- a ``torch.autograd.Function``: a pure conv (no
   epilogue) whose forward is K1 with an identity epilogue, whose dx is K1 on
   the cotangent with the weights rotated 180 degrees and channel-transposed
@@ -33,17 +37,100 @@ HWIO weights of any float type; the conv runs in the activation's type.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from realtime_stereo_matcher_tpu_torch.kernels import _build
-from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import fused_conv3x3
+from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
+    TC_CHANNELS,
+    TC_PIX_BYTES,
+    Card,
+    _pick_steps,
+    card_of,
+    fused_conv3x3,
+)
 
 KERNEL_NAME = "dw_reduce"
 # (C_in, C_out) pairs csrc/dw_reduce.cu instantiates, by depth taps (1: 2D)
 SUPPORTED_CHANNELS = {1: {(32, 32), (4, 32), (7, 32), (32, 1)},
                       3: {(32, 32), (32, 1)}}
 MAX_DILATION = 8  # the kernel stages a halo of 8 columns
+
+# The tensor-core kernel of csrc/dw_tc.cuh (bf16 32 -> 32): steps of 8 rows
+# of g, one partial dW of 9 x 32 x 32 floats a block for each depth tap, 12
+# warps and ~150 registers a thread, so one block an SM.
+DW_TC_ROWS = 8
+DW_TC_OUT = 9 * 32 * 32
+DW_TC_THREADS = 384
+# strip widths a plan may take: a staged x row of tw + 2 d pixels is at most
+# one 16-byte chunk a thread
+DW_TC_WIDTHS = (16, 32, 48, 64, 80)
+
+
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """The tiling of one tensor-core ``dw_reduce`` launch, computed here and
+    checked by the C entry point (``csrc/dw_reduce.cu`` ``launch_dw_tc``).
+
+    The rows of g are one stack of ``n * d * h`` rows; a block owns a strip
+    of ``tw`` columns and ``steps`` steps of ``th`` rows of that stack, with
+    a ring of ``ring`` x rows; ``grid`` is (strips, row chunks, ``kd``), the
+    grid's z being the depth tap; each block writes one partial dW to a
+    workspace of ``work_floats`` floats, summed in a fixed order."""
+
+    kd: int
+    shape: tuple          # (n, d, h, w)
+    dilation: int
+    th: int
+    tw: int
+    ring: int
+    steps: int
+    grid: tuple
+    smem: int
+    work_floats: int
+
+
+def dw_strip_width(w: int, dilation: int, card: Card) -> int:
+    """Columns of a block's strip: of ``DW_TC_WIDTHS`` whose plan fits the
+    card, the one that pads ``w`` least, the widest of those (it runs more
+    MMAs for each step's fixed costs, and loads less halo a pixel)."""
+    fits = [tw for tw in DW_TC_WIDTHS
+            if (tw + 2 * dilation) * 4 <= DW_TC_THREADS
+            and dw_tc_smem(tw, dilation, 2 * DW_TC_ROWS + 2 * dilation)
+            <= card.smem_per_block]
+    return min(fits, key=lambda tw: (-(-w // tw) * tw, -tw))
+
+
+def dw_tc_smem(tw: int, dilation: int, ring: int) -> int:
+    """Dynamic shared memory of a plan: the x ring and two g buffers, or the
+    block's 36 KB partial dW if that is more (csrc ``dw_smem_bytes``)."""
+    stream = (ring * (tw + 2 * dilation) + 2 * DW_TC_ROWS * tw) * TC_PIX_BYTES
+    return max(stream, DW_TC_OUT * 4)
+
+
+@functools.cache  # called on every launch
+def dw_tc_plan(n: int, d: int, h: int, w: int, kd: int, dilation: int,
+               card: Card) -> DwPlan:
+    """Tile plan of the bf16 32 -> 32 ``dw_reduce`` (``kd`` 1) or
+    ``dw_reduce3d`` (``kd`` 3) on the tensor cores.
+
+    One block an SM (its 12 warps hold 96 float32 accumulators a thread);
+    strip width by :func:`dw_strip_width`; rows per block chosen so that
+    the launch on ``card`` ends soonest: full waves times one block's steps
+    plus two (its first step, which no MMA overlaps, and its partial's sum
+    and store), which gives about one wave and so a workspace of about one
+    partial an SM."""
+    th, tw = DW_TC_ROWS, dw_strip_width(w, dilation, card)
+    ring = 2 * th + 2 * dilation
+    smem = dw_tc_smem(tw, dilation, ring)
+    tiles, strips = -(-(n * d * h) // th), -(-w // tw)
+    steps = _pick_steps(tiles, strips * kd, card.sms, lambda s: s + 2)
+    grid = (strips, -(-tiles // steps), kd)
+    return DwPlan(kd, (n, d, h, w), dilation, th, tw, ring, steps, grid,
+                  smem, grid[0] * grid[1] * grid[2] * DW_TC_OUT)
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -75,7 +162,9 @@ def dw_reduce3d_plain(x: torch.Tensor, g: torch.Tensor):
 
 
 def _dw_launch(x, g, kd: int, dilation: int):
-    """Launch csrc/dw_reduce.cu on (N, D, H, W, C) views of x and g."""
+    """Launch csrc/dw_reduce.cu on (N, D, H, W, C) views of x and g: bf16
+    ``TC_CHANNELS`` on the tensor cores (``rsm_dw_reduce_tc``), every other
+    call on the CUDA cores (``rsm_dw_reduce``)."""
     n, d, h, w, cin = x.shape
     cout = g.shape[-1]
     if (cin, cout) not in SUPPORTED_CHANNELS[kd]:
@@ -91,12 +180,23 @@ def _dw_launch(x, g, kd: int, dilation: int):
     _build.require(x, "x", shape=x.shape, dtype=x.dtype, device=dev)
     _build.require(g, "g", shape=(n, d, h, w, cout), dtype=x.dtype, device=dev)
     lib = _build.library()
+    out = torch.empty((kd, 3, 3, cin, cout), dtype=torch.float32, device=dev)
+    if x.dtype == torch.bfloat16 and (cin, cout) == TC_CHANNELS:
+        plan = dw_tc_plan(n, d, h, w, kd, dilation, card_of(dev.index))
+        work = torch.empty(plan.work_floats, dtype=torch.float32, device=dev)
+        rc = lib.rsm_dw_reduce_tc(
+            x.data_ptr(), g.data_ptr(), work.data_ptr(), out.data_ptr(),
+            plan.work_floats, n, d, h, w, kd, dilation, plan.th, plan.tw,
+            plan.ring, plan.steps, *plan.grid, plan.smem, dev.index,
+            _build.stream_of(x))
+        _build.check(rc, KERNEL_NAME)
+        _build.LAUNCHES[KERNEL_NAME] += 1
+        return out
     size = lib.rsm_dw_workspace(n, d, h, w, cin, cout, kd, dilation)
     if size < 0:
         raise ValueError(f"dw_reduce: no kernel for {tuple(x.shape)} "
                          f"-> {cout}, depth taps {kd}, dilation {dilation}")
     work = torch.empty(size, dtype=torch.float32, device=dev)
-    out = torch.empty((kd, 3, 3, cin, cout), dtype=torch.float32, device=dev)
     rc = lib.rsm_dw_reduce(x.data_ptr(), g.data_ptr(), work.data_ptr(),
                            out.data_ptr(), _build.DTYPE_CODES[x.dtype], n, d,
                            h, w, cin, cout, kd, dilation, dev.index,

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Side-by-side timings of the port's tensor-core convolutions on one card.
 
-    python3 tools/tc_compare.py variants --out DIR
+    python3 tools/tc_compare.py variants --out DIR [--only NAME ...]
     python3 tools/tc_compare.py in-turns --parent TREE --out DIR
 
-``variants``: K1 and K3 (``csrc/conv_tc.cuh``, bf16 32 -> 32) as built,
-with parts of their work cut out (the ``RSM_TC_CUT_*`` macros of
-``conv_tc.cuh``), and K3's wgmma form (``tools/conv_tc_wgmma.cuh`` in place
-of ``conv_tc.cuh``).  Each variant is a copy of the package under ``DIR``,
+``variants``: the tensor-core kernels (bf16 32 -> 32: K1 and K3 of
+``csrc/conv_tc.cuh``, K4 of ``csrc/dw_tc.cuh``, K2 and K2-4x4 of
+``csrc/conv_s2_tc.cuh``) as built, with parts of their work cut out (the
+``RSM_TC_CUT_*`` macros of ``conv_tc.cuh``, which the other two headers
+include and test too), and K3's wgmma form (``tools/conv_tc_wgmma.cuh`` in
+place of ``conv_tc.cuh``).  Each variant is a copy of the package under ``DIR``,
 built and timed in a process of its own; the variants run in turns
-(A B ... B A).  A cut variant's results are wrong by design: only its time
-means anything.
+(A B ... B A); ``--only`` keeps the variants named.  A cut variant's
+results are wrong by design: only its time means anything.
 
 ``in-turns``: a parent tree (a ``git archive`` of the parent commit,
 unpacked) against the tree that holds this script, in the order parent,
@@ -18,15 +20,18 @@ change, change, parent.  In each: ``python3 chip_smoke.py`` (its log kept
 under ``DIR``; frame and step medians and every kernel row read from it),
 then the K1 / K3 timings below.
 
-The timings: K1 at 720 x 1280 32 -> 32 +residual, dilations 1 and 8, and K3
-at (1, 24, 90, 160) and (4, 24, 60, 80), each beside the cuDNN call of the
-same convolution, read two ways: ``ms``, CUDA events around 20 calls, as
+The timings: K1 at 720 x 1280 32 -> 32 +residual, dilations 1 and 8, K3
+at (1, 24, 90, 160) and (4, 24, 60, 80), K4 at 4 x 480 x 640 (dilations 1
+and 8) and (4, 24, 60, 80), K2-4x4 at 720 x 1280 and K2 at 360 x 640, each
+beside the cuDNN call of the same convolution (for K4 its weight
+gradient), read two ways: ``ms``, CUDA events around 20 calls, as
 ``chip_smoke.py``'s ``time_ms`` reads every row (where the host issues the
 calls more slowly than the card runs them, this times the host too), and
 ``device_ms``, the same 20 calls queued behind a ~50 ms device sleep
 (device time alone).  K3's largest error against its plain version is given
-too.  One JSON line per run, a summary in ``DIR/summary.json``, and as the
-last line the card's name and power limit.  Needs one CUDA card and nvcc;
+too, and K4's over its output's scale.  One JSON line per run, a summary
+in ``DIR/summary.json``, and as the last line the card's name and power
+limit.  Needs one CUDA card and nvcc;
 ``DIR`` is best a directory git ignores (``_runs/``).
 """
 
@@ -76,10 +81,19 @@ def time_tree(tree: pathlib.Path) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import fused_conv3x3
+    from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
+        fused_conv3x3,
+        fused_conv4x4_s2,
+    )
     from realtime_stereo_matcher_tpu_torch.kernels.cost_filter3d import (
         fused_conv3d,
         fused_conv3d_plain,
+    )
+    from realtime_stereo_matcher_tpu_torch.kernels.train_conv import (
+        dw_reduce,
+        dw_reduce3d,
+        dw_reduce3d_plain,
+        dw_reduce_plain,
     )
 
     dev = torch.device("cuda")
@@ -129,6 +143,35 @@ def time_tree(tree: pathlib.Path) -> dict:
         ref = fused_conv3d_plain(x3.float(), w3.float(), scale, bias)
         out[key]["max_abs_err"] = float(
             (fused_conv3d(x3, w3, scale, bias).float() - ref).abs().max())
+    for shape, d in (((4, 480, 640), 1), ((4, 480, 640), 8),
+                     ((4, 24, 60, 80), None)):
+        xg, gg = rand(*shape, 32).bfloat16(), rand(*shape, 32).bfloat16()
+        x_nc, g_nc = xg.movedim(-1, 1), gg.movedim(-1, 1)
+        if d is None:
+            key = f"K4 3D {'x'.join(map(str, shape))}"
+            fn = lambda: dw_reduce3d(xg, gg)
+            lib = lambda: torch.nn.grad.conv3d_weight(
+                x_nc, (32, 32, 3, 3, 3), g_nc, padding=1)
+            ref = dw_reduce3d_plain(xg.float(), gg.float())
+        else:
+            key = f"K4 {'x'.join(map(str, shape))} d{d}"
+            fn = lambda: dw_reduce(xg, gg, d)
+            lib = lambda: torch.nn.grad.conv2d_weight(
+                x_nc, (32, 32, 3, 3), g_nc, padding=d, dilation=d)
+            ref = dw_reduce_plain(xg.float(), gg.float(), d)
+        out[key] = both(fn, lib)
+        out[key]["max_err_over_scale"] = float(
+            (fn() - ref).abs().max() / ref.abs().max())
+    for taps, hw in ((4, (720, 1280)), (3, (360, 640))):
+        xs = rand(1, *hw, 32).bfloat16()
+        ws = (rand(taps, taps, 32, 32) / (taps * 6)).bfloat16()
+        xs_nchw, ws_oihw = xs.permute(0, 3, 1, 2), ws.permute(
+            3, 2, 0, 1).contiguous()
+        fn = ((lambda: fused_conv4x4_s2(xs, ws, scale, bias, act=0.2))
+              if taps == 4 else
+              (lambda: fused_conv3x3(xs, ws, scale, bias, stride=2)))
+        out[f"K2{'-4x4' if taps == 4 else ''} {hw[0]}x{hw[1]}"] = both(
+            fn, lambda: F.conv2d(xs_nchw, ws_oihw, stride=2, padding=1))
     return out
 
 
@@ -180,6 +223,8 @@ def main(argv=None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     v = sub.add_parser("variants")
     v.add_argument("--out", type=pathlib.Path, required=True)
+    v.add_argument("--only", nargs="+", choices=list(VARIANTS),
+                   help="the variants to time (default: all)")
     t = sub.add_parser("in-turns")
     t.add_argument("--parent", type=pathlib.Path, required=True)
     t.add_argument("--out", type=pathlib.Path, required=True)
@@ -193,9 +238,10 @@ def main(argv=None) -> int:
     args.out.mkdir(parents=True, exist_ok=True)
     runs = []
     if args.cmd == "variants":
+        names = args.only or list(VARIANTS)
         trees = {name: make_variant(name, args.out / "variants")
-                 for name in VARIANTS}
-        for i, name in enumerate(list(VARIANTS) + list(VARIANTS)[::-1]):
+                 for name in names}
+        for i, name in enumerate(names + names[::-1]):
             log = args.out / f"variant_{i}.log"
             runs.append({"variant": name,
                          "times": _child_times(trees[name], log)})
