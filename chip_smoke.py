@@ -30,6 +30,19 @@ imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
    version and one cuDNN weight-gradient call.
 4. autograd: ``flat_conv3x3`` and ``flat_conv3d`` backward (dx, dW) against
    the plain backward of the same functions, float32 and bfloat16.
+4a. narrow kernels: the narrow channel pairs, bf16 on the tensor cores
+   (K1 stride 1 at 1 / 3 / 4 / 7 -> 32 and 32 -> 1 / 4 / 7,
+   ``csrc/conv_narrow_tc.cuh``; K4 at 4 / 7 -> 32 and 32 -> 1, 2D and 3D,
+   ``csrc/dw_tc.cuh``), against their plain versions at every frame and
+   training shape of v1 / v2 / v3 and at ragged ones, float32 and bf16, each
+   K4 launched twice for the same bits; then every narrow pair timed at its
+   largest launch (those still on the CUDA cores too: K2 3 -> 32, K3 32 -> 1
+   and 1 -> 32) beside its plain version, one cuDNN call and the bound, with
+   ``device_ms``.  After the last phase (11), one v1 and v2 training step and
+   one v3 frame under the profiler (``narrow routes``, last because a
+   profiler session can slow the host's launches for the rest of the
+   process), which must show every narrow pair of those paths on the tensor
+   cores.
 5. model: v1 from ``configure/stereo_net_config.json`` with seeded weights
    and BatchNorm stats; the float32 kernel path against the plain float32
    model at 1280x720, the bf16 kernel path (the inference main path) with
@@ -192,7 +205,9 @@ SOURCES = {
     "conv3x3_s2": "realtime_stereo_matcher_tpu_torch/kernels/train_conv.py",
 }
 # the design of the kernels that carry the bf16 32 -> 32 calls (the timed
-# rows); float32 and the narrow pairs stay on the CUDA-core template
+# rows), and of those that carry the bf16 narrow pairs (the "pairs" of K1
+# and K4: their rows name one of the "narrow ..." designs); float32 stays on
+# the CUDA-core template, and so do K2's and K3's narrow pairs in bf16
 TC_DESIGN = {
     "fused_conv3x3": "tensor cores (mma.sync), cp.async",
     "fused_conv3x3_s2": "tensor cores (mma.sync), cp.async, input rows "
@@ -201,7 +216,26 @@ TC_DESIGN = {
                         "staged as column-parity planes",
     "fused_conv3d": "tensor cores (mma.sync), cp.async",
     "dw_reduce": "tensor cores (mma.sync, both operands by ldmatrix.trans), "
-                 "cp.async; one partial a block, summed in a fixed order"}
+                 "cp.async; one partial a block, summed in a fixed order",
+    "narrow in": "tensor cores (mma.sync), csrc/conv_narrow_tc.cuh: input "
+                 "pixels staged through registers as 16-byte chunks "
+                 "(channels padded to 8), taps packed two to a k16 step "
+                 "(K = 80), 16-byte staged stores",
+    "narrow out": "tensor cores (mma.sync), csrc/conv_narrow_tc.cuh: "
+                  "32-channel rows by cp.async, one n8 tile (C_out padded "
+                  "to 8), output rows staged compactly",
+    "dw narrow x": "tensor cores (mma.sync), csrc/dw_tc.cuh: x staged "
+                   "through registers padded to 8 channels, a tap row's 3 "
+                   "taps in two m16 tiles, two blocks an SM; one partial a "
+                   "block, summed in a fixed order",
+    "dw narrow g": "tensor cores (mma.sync), csrc/dw_tc.cuh: g staged "
+                   "through registers padded to 8 channels, one n8 tile, two "
+                   "blocks an SM; one partial a block, summed in a fixed "
+                   "order"}
+CUDA_CORE_DESIGN = "CUDA cores (float32 FMAs), csrc/conv_common.cuh"
+# the epilogue each narrow K1 pair has on the model paths
+NARROW_ACT = {(4, 32): "relu", (7, 32): "relu", (3, 32): 0.2, (1, 32): "none",
+              (32, 1): "none", (32, 4): "none", (32, 7): "none"}
 # device clock cycles queued ahead of a device-time run (~50 ms at 1.98 GHz)
 SLEEP_CYCLES = 100_000_000
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -776,8 +810,9 @@ def time_tc_kernels(device, peaks) -> dict:
 
 
 def time_train_kernels(device, peaks) -> dict:
-    """bf16 timings of K4 at its largest launch (2D, and the 3D form), and
-    of the K1 / K3 pairs the backward adds, at the training shapes."""
+    """bf16 timings of K4 at its largest launch (2D, and the 3D form) and
+    of K5 / K6 (``time_autograd``); the narrow pairs are timed by
+    ``time_narrow``."""
     gen = torch.Generator(device=device).manual_seed(SEED + 4)
     rows = {}
     for key, case in (("dw_reduce", dict(hw=TRAIN_HW, cin=32, cout=32, dil=1)),
@@ -806,19 +841,6 @@ def time_train_kernels(device, peaks) -> dict:
         rows[key] = dict(shape=shape, plain_ms=time_ms(plain),
                          **_tc_times(fn, lib), bytes=_nbytes(x, g, out),
                          flops=2 * pixels * taps * 32 * 32)
-    for cin, cout in ((32, 4), (1, 32)):
-        args = _operands((TRAIN_B, *TRAIN_HW, cin), (3, 3, cin, cout), cout,
-                         torch.bfloat16, device, gen)
-        kw = dict(act="none")
-        out = fused_conv3x3(*args, **kw)
-        w_oihw = args[1].permute(3, 2, 0, 1).contiguous()
-        x_nchw = args[0].permute(0, 3, 1, 2)
-        rows[f"fused_conv3x3 {cin}->{cout}"] = dict(
-            shape=f"{TRAIN_B}x{TRAIN_HW[0]}x{TRAIN_HW[1]} {cin}->{cout}",
-            ms=time_ms(lambda: fused_conv3x3(*args, **kw)),
-            plain_ms=time_ms(lambda: fused_conv3x3_plain(*args, **kw)),
-            library_ms=time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1)),
-            bytes=_nbytes(*args, out), flops=2 * out.numel() * 9 * cin)
     rows.update(time_autograd(device, gen))
     return add_bounds(rows, peaks)
 
@@ -918,6 +940,235 @@ def check_autograd(device) -> dict:
     log(f"  {2 * len(cases)} backward cases within tolerance; largest error "
         f"/ scale " + json.dumps({" ".join(k): v for k, v in worst.items()}))
     return worst
+
+
+# ---------------------------------------------------------------------------
+# the narrow channel pairs of K1 (stride 1) and K4, on the tensor cores in
+# bf16
+# ---------------------------------------------------------------------------
+
+
+def narrow_cases() -> tuple[list, list]:
+    """Every narrow K1 (stride 1) and K4 launch shape of the v1 / v2 / v3
+    frames and training steps, then ragged ones: K1 as (pair, (n, h, w),
+    dilation, residual), K4 as (kd, pair, shape, dilation)."""
+    frame = [(1, HW[0] >> k, HW[1] >> k) for k in (0, 1, 2)]
+    v1 = [(TRAIN_B, TRAIN_HW[0] >> k, TRAIN_HW[1] >> k) for k in (0, 1, 2)]
+    v23 = [(TRAIN_B_V23, TRAIN_HW_V23[0] >> k, TRAIN_HW_V23[1] >> k)
+           for k in (0, 1, 2)]
+    k1_shapes = {(4, 32): frame + v1, (7, 32): frame + v23,
+                 (3, 32): frame[:1], (1, 32): v1 + v23,
+                 (32, 1): frame + v1 + v23, (32, 4): v1, (32, 7): v23}
+    ragged = [((3, 37, 53), 1, False), ((3, 37, 53), 8, True),
+              ((2, 9, 130), 4, False)]
+    k1 = [(pair, shape, 1, False) for pair, shapes in k1_shapes.items()
+          for shape in shapes]
+    k1 += [(pair, shape, d, res) for pair in k1_shapes
+           for shape, d, res in ragged]
+    vols = [(TRAIN_B, 24, TRAIN_HW[0] >> 3, TRAIN_HW[1] >> 3),
+            (TRAIN_B_V23, 24, TRAIN_HW_V23[0] >> 3, TRAIN_HW_V23[1] >> 3)]
+    k4 = [(1, (4, 32), shape, 1) for shape in v1]
+    k4 += [(1, (7, 32), shape, 1) for shape in v23]
+    k4 += [(1, (32, 1), shape, 1) for shape in v1 + v23]
+    k4 += [(3, (32, 1), vol, 1) for vol in vols]
+    k4 += [(1, pair, (3, 37, 53), d) for pair in ((4, 32), (7, 32), (32, 1))
+           for d in (1, 8)]
+    k4 += [(1, (7, 32), (1, 5, 130), 2), (3, (32, 1), (2, 5, 17, 33), 1)]
+    return k1, k4
+
+
+def check_narrow(device) -> dict:
+    """The narrow pairs against their plain versions at ``narrow_cases()``,
+    float32 and bf16: K1 within ``TOL_F32`` / ``TOL_BF16`` with its model
+    epilogue (and ReLU with a residual at a ragged shape), K4 within
+    ``TOL_DW_F32`` / ``TOL_DW_BF16`` of its output's scale, each K4 launched
+    twice on the same inputs: the two must be the same bits."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    worst: dict = {}
+
+    def note(key, err):
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    k1, k4 = narrow_cases()
+    for dtype, tol, dtol, tag in ((torch.float32, TOL_F32, TOL_DW_F32, "f32"),
+                                  (torch.bfloat16, TOL_BF16, TOL_DW_BF16,
+                                   "bf16")):
+        for (cin, cout), (n, h, w), d, with_res in k1:
+            args = _operands((n, h, w, cin), (3, 3, cin, cout), cout, dtype,
+                             device, gen)
+            res, act = None, NARROW_ACT[(cin, cout)]
+            if with_res:
+                res, act = (torch.rand((n, h, w, cout), generator=gen,
+                                       device=device) * 2 - 1).to(dtype), "relu"
+            got = fused_conv3x3(*args, dilation=d, act=act, residual=res)
+            ref = fused_conv3x3_plain(
+                *(a.float() for a in args), dilation=d, act=act,
+                residual=None if res is None else res.float())
+            note(("fused_conv3x3", tag), _compare(
+                got, ref, tol, f"narrow fused_conv3x3 {cin}->{cout} "
+                f"{n}x{h}x{w} d{d} {dtype}"))
+        for kd, (cin, cout), shape, d in k4:
+            x = (torch.rand((*shape, cin), generator=gen, device=device) * 2
+                 - 1).to(dtype)
+            g = (torch.rand((*shape, cout), generator=gen, device=device) * 2
+                 - 1).to(dtype)
+            if kd == 3:
+                got, again = dw_reduce3d(x, g), dw_reduce3d(x, g)
+                ref = dw_reduce3d_plain(x.float(), g.float())
+            else:
+                got, again = dw_reduce(x, g, d), dw_reduce(x, g, d)
+                ref = dw_reduce_plain(x.float(), g.float(), d)
+            what = f"narrow dw_reduce {kd}D {cin}->{cout} {shape} d{d} {dtype}"
+            err, rel = _compare_scaled(got, ref, dtol, what)
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: two launches on the same "
+                                     f"inputs differ")
+            note(("dw_reduce", tag), err)
+            note(("dw_reduce", tag, "over scale"), rel)
+        log(f"  narrow pairs: {len(k1)} K1 and {len(k4)} K4 cases within "
+            f"tolerance in {dtype}, each K4 the same bits on a second launch")
+    log("  narrow pairs, largest error (K4 also over its output's scale): "
+        + json.dumps({" ".join(k): v for k, v in worst.items()}))
+    return worst
+
+
+# the narrow pairs' groups (frame_profile.kernel_group) each main path runs,
+# all on the tensor cores in bf16; the narrow launches left on the CUDA
+# cores are K2's 3 -> 32 stem and K3's 32 -> 1 / 1 -> 32 pairs
+NARROW_TC_GROUPS = {
+    "train v1": ("fused_conv3x3 4->32", "fused_conv3x3 32->1",
+                 "fused_conv3x3 32->4", "fused_conv3x3 1->32",
+                 "dw_reduce 4->32", "dw_reduce 32->1", "dw_reduce 3D 32->1"),
+    "train v2": ("fused_conv3x3 7->32", "fused_conv3x3 32->7",
+                 "dw_reduce 7->32"),
+    "frame v3": ("fused_conv3x3 3->32", "fused_conv3x3 32->1")}
+NARROW_CUDA_CORE_GROUPS = ("fused_conv3x3_s2 3->32", "fused_conv3d 32->1",
+                           "fused_conv3d 1->32")
+
+
+def check_narrow_routes(device) -> dict:
+    """One bf16 v1 and v2 training step and one v3 720p frame under the
+    profiler (``frame_profile``): each of ``NARROW_TC_GROUPS`` launched on
+    the tensor cores, and no other narrow pair on the CUDA cores.  Returns
+    the narrow groups' launches per step or frame with their routes."""
+    got = {}
+    for label, (fn, model) in (
+            ("train v1", (frame_profile.train_step_fn, "v1")),
+            ("train v2", (frame_profile.train_step_fn, "v2")),
+            ("frame v3", (frame_profile.frame_fn, "v3"))):
+        prof = frame_profile.profile_device(fn(device, SEED, model), 1)
+        narrow = {g: v for g, v in prof["groups"].items()
+                  if v["route"] in ("tensor cores", "cuda cores")
+                  and not g.endswith(" 32->32")}
+        for g in NARROW_TC_GROUPS[label]:
+            if narrow.get(g, {}).get("route") != "tensor cores" or \
+                    not narrow[g]["launches_per_frame"]:
+                raise AssertionError(f"{label}: {g} did not run on the "
+                                     f"tensor cores: {narrow.get(g)}")
+        for g, v in narrow.items():
+            if v["route"] != "tensor cores" and g not in \
+                    NARROW_CUDA_CORE_GROUPS:
+                raise AssertionError(f"{label}: {g} ran on {v['route']}")
+        got[label] = {g: {"launches": v["launches_per_frame"],
+                          "route": v["route"]} for g, v in narrow.items()}
+    log(f"  narrow pairs on the main paths by route: {json.dumps(got)}")
+    return got
+
+
+def time_narrow(device, peaks) -> dict:
+    """bf16 timings of every narrow pair at its largest launch beside its
+    plain version, one cuDNN call (``library_ms``) and the bound, ``ms`` and
+    ``device_ms`` (the same calls queued: device time alone): K1 1 / 3 / 4 /
+    7 -> 32 and 32 -> 1 / 4 / 7, K4 4 / 7 -> 32 and 32 -> 1 (2D and 3D) on the
+    tensor cores, and the narrow launches still on the CUDA cores, K2's
+    3 -> 32 encoder stem and K3's 32 -> 1 head and 1 -> 32 (its dx)."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    rows = {}
+    v1 = (TRAIN_B, *TRAIN_HW)
+    v23 = (TRAIN_B_V23, *TRAIN_HW_V23)
+    for (cin, cout), shape in (((4, 32), (1, *HW)), ((7, 32), (1, *HW)),
+                               ((3, 32), (1, *HW)), ((1, 32), v1),
+                               ((32, 1), (1, *HW)), ((32, 4), v1),
+                               ((32, 7), v23)):
+        act = NARROW_ACT[(cin, cout)]
+        args = _operands((*shape, cin), (3, 3, cin, cout), cout,
+                         torch.bfloat16, device, gen)
+        out = fused_conv3x3(*args, act=act)
+        w_oihw = args[1].permute(3, 2, 0, 1).contiguous()
+        x_nchw = args[0].permute(0, 3, 1, 2)
+        rows[f"fused_conv3x3 {cin}->{cout}"] = dict(
+            shape=f"{'x'.join(map(str, shape))} {cin}->{cout} {act}",
+            design=TC_DESIGN["narrow in" if cout == 32 else "narrow out"],
+            source="realtime_stereo_matcher_tpu_torch/csrc/conv_narrow_tc.cuh",
+            plain_ms=time_ms(lambda: fused_conv3x3_plain(*args, act=act)),
+            **_tc_times(lambda: fused_conv3x3(*args, act=act),
+                        lambda: F.conv2d(x_nchw, w_oihw, padding=1)),
+            bytes=_nbytes(*args, out), flops=2 * out.numel() * 9 * cin)
+    for kd, (cin, cout), shape in (
+            (1, (4, 32), v1), (1, (7, 32), v23), (1, (32, 1), v1),
+            (3, (32, 1), (TRAIN_B, 24, TRAIN_HW[0] >> 3, TRAIN_HW[1] >> 3))):
+        x = (torch.rand((*shape, cin), generator=gen, device=device) * 2
+             - 1).bfloat16()
+        g = (torch.rand((*shape, cout), generator=gen, device=device) * 2
+             - 1).bfloat16()
+        x_nc, g_nc = x.movedim(-1, 1), g.movedim(-1, 1)
+        if kd == 3:
+            fn, plain = (lambda: dw_reduce3d(x, g)), (
+                lambda: dw_reduce3d_plain(x, g))
+            lib = (lambda: torch.nn.grad.conv3d_weight(
+                x_nc, (cout, cin, 3, 3, 3), g_nc, padding=1))
+        else:
+            fn, plain = (lambda: dw_reduce(x, g)), (
+                lambda: dw_reduce_plain(x, g))
+            lib = (lambda: torch.nn.grad.conv2d_weight(
+                x_nc, (cout, cin, 3, 3), g_nc, padding=1))
+        out = fn()
+        rows[f"dw_reduce{' 3D' if kd == 3 else ''} {cin}->{cout}"] = dict(
+            shape=f"{'x'.join(map(str, shape))} {cin}->{cout}",
+            design=TC_DESIGN["dw narrow x" if cout == 32 else
+                             "dw narrow g"],
+            source="realtime_stereo_matcher_tpu_torch/csrc/dw_tc.cuh",
+            plain_ms=time_ms(plain), **_tc_times(fn, lib),
+            bytes=_nbytes(x, g, out),
+            flops=2 * (x.numel() // cin) * 9 * kd * cin * cout)
+    # still on the CUDA cores: K2 3 -> 32 (stride 2), K3 32 -> 1 and 1 -> 32
+    args = _operands((1, *HW, 3), (3, 3, 3, 32), 32, torch.bfloat16, device,
+                     gen)
+    out = fused_conv3x3(*args, stride=2)
+    w_oihw = args[1].permute(3, 2, 0, 1).contiguous()
+    x_nchw = args[0].permute(0, 3, 1, 2)
+    rows["fused_conv3x3_s2 3->32"] = dict(
+        shape=f"{HW[0]}x{HW[1]} -> {out.shape[1]}x{out.shape[2]} 3->32 relu",
+        design=CUDA_CORE_DESIGN,
+        source="realtime_stereo_matcher_tpu_torch/csrc/conv_common.cuh",
+        plain_ms=time_ms(lambda: fused_conv3x3_plain(*args, stride=2)),
+        **_tc_times(lambda: fused_conv3x3(*args, stride=2),
+                    lambda: F.conv2d(x_nchw, w_oihw, stride=2, padding=1)),
+        bytes=_nbytes(*args, out), flops=2 * out.numel() * 9 * 3)
+    for (cin, cout), vol, relu in (
+            ((32, 1), (1, 24, HW[0] >> 3, HW[1] >> 3), False),
+            ((1, 32), (TRAIN_B, 24, TRAIN_HW[0] >> 3, TRAIN_HW[1] >> 3),
+             False)):
+        args, kw = conv3d_operands(dict(vol=vol, cin=cin, cout=cout,
+                                        relu=relu), torch.bfloat16, device,
+                                   gen)
+        out = fused_conv3d(*args, **kw)
+        w_oidhw = args[1].permute(4, 3, 0, 1, 2).contiguous()
+        x_ncdhw = args[0].permute(0, 4, 1, 2, 3)
+        rows[f"fused_conv3d {cin}->{cout}"] = dict(
+            shape=f"{'x'.join(map(str, vol))} {cin}->{cout}",
+            design=CUDA_CORE_DESIGN,
+            source="realtime_stereo_matcher_tpu_torch/csrc/conv_common.cuh",
+            plain_ms=time_ms(lambda: fused_conv3d_plain(*args, **kw)),
+            **_tc_times(lambda: fused_conv3d(*args, **kw),
+                        lambda: F.conv3d(x_ncdhw, w_oidhw, padding=1)),
+            bytes=_nbytes(*args, out), flops=2 * out.numel() * 27 * cin)
+    add_bounds(rows, peaks)
+    for row in rows.values():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["device_ms"]["bound_share"] = (row["bound_ms"]
+                                           / row["device_ms"]["ms"])
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1048,10 +1299,10 @@ def check_v3_kernels(device) -> dict:
 
 
 def time_v3_kernels(device, peaks) -> dict:
-    """bf16 timings of K2-4x4 at its largest launch (720x1280 -> 360x640)
-    and of the v3 stem (K1 3 -> 32 at 720x1280).  cuDNN's yardstick for the
-    4x4 conv is the same conv with torch padding 1, which is TF-SAME on
-    even sizes."""
+    """bf16 timings of K2-4x4 at its largest launch (720x1280 -> 360x640);
+    the v3 stem (K1 3 -> 32) is timed by ``time_narrow``.  cuDNN's
+    yardstick for the 4x4 conv is the same conv with torch padding 1, which
+    is TF-SAME on even sizes."""
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     rows = {}
     args = conv4x4_operands(HW, torch.bfloat16, device, gen)
@@ -1065,17 +1316,6 @@ def time_v3_kernels(device, peaks) -> dict:
         **_tc_times(lambda: fused_conv4x4_s2(*args, act=0.2),
                     lambda: F.conv2d(x_nchw, w_oihw, stride=2, padding=1)),
         bytes=_nbytes(*args, out), flops=2 * out.numel() * 16 * 32)
-    args = _operands((1, *HW, 3), (3, 3, 3, 32), 32, torch.bfloat16, device,
-                     gen)
-    out = fused_conv3x3(*args, act=0.2)
-    w_oihw = args[1].permute(3, 2, 0, 1).contiguous()
-    x_nchw = args[0].permute(0, 3, 1, 2)
-    rows["fused_conv3x3 3->32"] = dict(
-        shape=f"{HW[0]}x{HW[1]} 3->32 leaky",
-        ms=time_ms(lambda: fused_conv3x3(*args, act=0.2)),
-        plain_ms=time_ms(lambda: fused_conv3x3_plain(*args, act=0.2)),
-        library_ms=time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1)),
-        bytes=_nbytes(*args, out), flops=2 * out.numel() * 9 * 3)
     return add_bounds(rows, peaks)
 
 
@@ -1202,41 +1442,13 @@ def check_v2_kernels(device) -> dict:
 
 
 def time_v2_kernels(device, peaks) -> dict:
-    """bf16 timings of the v2 pairs at their largest launches (K1 7 -> 32
-    at 720x1280, K1 32 -> 7 and K4 7 -> 32 at 8 x 240 x 320) and of K7
-    forward + backward at (4, 240, 320, 32) beside its plain float32
-    autograd and cuDNN's bf16 forward + backward.  K7's bytes: x, w, the
+    """bf16 timings of K7 forward + backward at (4, 240, 320, 32) beside its
+    plain float32 autograd and cuDNN's bf16 forward + backward (the v2
+    pairs of K1 and K4 are timed by ``time_narrow``).  K7's bytes: x, w, the
     cotangent, y, dx and dW once each; its operations: three stride-2
     convolutions' worth (its zero-upsampled backward does 4x that)."""
     gen = torch.Generator(device=device).manual_seed(SEED + 10)
     rows = {}
-    for key, shape, cin, cout, act in (
-            ("fused_conv3x3 7->32", (1, *HW), 7, 32, "relu"),
-            ("fused_conv3x3 32->7", (TRAIN_B_V23, *TRAIN_HW_V23), 32, 7,
-             "none")):
-        args = _operands((*shape, cin), (3, 3, cin, cout), cout,
-                         torch.bfloat16, device, gen)
-        out = fused_conv3x3(*args, act=act)
-        w_oihw = args[1].permute(3, 2, 0, 1).contiguous()
-        x_nchw = args[0].permute(0, 3, 1, 2)
-        rows[key] = dict(
-            shape=f"{'x'.join(map(str, shape))} {cin}->{cout} {act}",
-            ms=time_ms(lambda: fused_conv3x3(*args, act=act)),
-            plain_ms=time_ms(lambda: fused_conv3x3_plain(*args, act=act)),
-            library_ms=time_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1)),
-            bytes=_nbytes(*args, out), flops=2 * out.numel() * 9 * cin)
-    x, g = _dw_operands(dict(hw=TRAIN_HW_V23, cin=7, cout=32),
-                        torch.bfloat16, device, gen, TRAIN_B_V23)
-    out = dw_reduce(x, g)
-    x_nc, g_nc = x.movedim(-1, 1), g.movedim(-1, 1)
-    rows["dw_reduce 7->32"] = dict(
-        shape=f"{TRAIN_B_V23}x{TRAIN_HW_V23[0]}x{TRAIN_HW_V23[1]} 7->32 d1",
-        ms=time_ms(lambda: dw_reduce(x, g)),
-        plain_ms=time_ms(lambda: dw_reduce_plain(x, g)),
-        library_ms=time_ms(lambda: torch.nn.grad.conv2d_weight(
-            x_nc, (32, 7, 3, 3), g_nc, padding=1)),
-        bytes=_nbytes(x, g, out), flops=2 * (x.numel() // 7) * 9 * 7 * 32)
-
     x0, w0, cot = _k7_operands(torch.bfloat16, device, gen)
     x, w = x0.requires_grad_(), w0.requires_grad_()
     cot = cot.bfloat16()
@@ -1479,6 +1691,10 @@ def main() -> int:
         log(json.dumps({"train_kernel_times": train_rows}))
     with Phase("autograd"):
         grad_worst = check_autograd(device)
+    with Phase("narrow kernels"):
+        narrow_worst = check_narrow(device)
+        narrow_rows = time_narrow(device, peaks)
+        log(json.dumps({"narrow_kernel_times": narrow_rows}))
     with Phase("model"):
         model_result = check_model(device)
     with Phase("bench"):
@@ -1505,6 +1721,10 @@ def main() -> int:
         train_v2 = check_train(device, "v2")
     with Phase("train v3"):
         train_v3 = check_train(device, "v3")
+    # last: a profiler session can leave per-launch tracing costs on the
+    # host, which would slow the frames and steps timed above
+    with Phase("narrow routes"):
+        narrow_paths = check_narrow_routes(device)
 
     rows["dw_reduce"] = train_rows["dw_reduce"]
     rows["fused_conv4x4_s2"] = v3_rows["fused_conv4x4_s2"]
@@ -1514,9 +1734,10 @@ def main() -> int:
             worst[(name, key)] = max(worst[(name, key)],
                                      train_worst[(name, key)],
                                      tc_worst.get((name, key), 0.0))
-        worst[("fused_conv3x3", key)] = max(worst[("fused_conv3x3", key)],
-                                            v3_worst[("fused_conv3x3", key)],
-                                            v2_worst[("fused_conv3x3", key)])
+        worst[("fused_conv3x3", key)] = max(
+            worst[("fused_conv3x3", key)], v3_worst[("fused_conv3x3", key)],
+            v2_worst[("fused_conv3x3", key)],
+            narrow_worst[("fused_conv3x3", key)])
         worst[("fused_conv4x4_s2", key)] = max(
             v3_worst[("fused_conv4x4_s2", key)],
             tc_worst.get(("fused_conv4x4_s2", key), 0.0))
@@ -1526,28 +1747,31 @@ def main() -> int:
         worst[("dw_reduce", key)] = max(train_worst[("dw_reduce", key)],
                                         v2_worst[("dw_reduce", key)],
                                         dw_tc_worst.get(("dw_reduce", key),
-                                                        0.0))
+                                                        0.0),
+                                        narrow_worst[("dw_reduce", key)])
         worst[("conv3x3_s2", key)] = v2_worst[("conv3x3_s2", key)]
     over_scale = {
         "dw_reduce": {key: max(train_worst[("dw_reduce", key, "over scale")],
                                v2_worst[("dw_reduce", key, "over scale")],
                                dw_tc_worst.get(("dw_reduce", key,
-                                                "over scale"), 0.0))
+                                                "over scale"), 0.0),
+                               narrow_worst[("dw_reduce", key, "over scale")])
                       for key in ("f32", "bf16")},
         "conv3x3_s2": {f"{part} {key}": v2_worst[("conv3x3_s2", key, part,
                                                   "over scale")]
                        for key in ("f32", "bf16") for part in ("y", "dx",
                                                                 "dW")}}
-    # the channel pairs later slices added to K1 and K4, timed at their
-    # largest launches
-    pairs = {"fused_conv3x3": {
-                 "3->32": v3_rows["fused_conv3x3 3->32"],
-                 "32->4": train_rows["fused_conv3x3 32->4"],
-                 "1->32": train_rows["fused_conv3x3 1->32"],
-                 "7->32": v2_rows["fused_conv3x3 7->32"],
-                 "32->7": v2_rows["fused_conv3x3 32->7"]},
-             "dw_reduce": {"3d": train_rows["dw_reduce 3D"],
-                           "7->32": v2_rows["dw_reduce 7->32"]}}
+    # the narrow channel pairs of K1, K2, K3 and K4 (and K4's 3D 32 -> 32),
+    # timed at their largest launches, each with its design
+    pairs = {}
+    for key, row in narrow_rows.items():
+        name, pair = key.split(" ", 1)
+        pairs.setdefault(name, {})[pair] = row
+    pairs["dw_reduce"]["3d"] = train_rows["dw_reduce 3D"]
+    for name in pairs:  # the narrow launches of the main paths, by route
+        pairs[name]["main path launches"] = {
+            label: {g: v for g, v in groups.items() if g.split(" ")[0] == name}
+            for label, groups in narrow_paths.items()}
     paths = {"train_run": train_result, "infer_frame": model_result,
              "infer_frame_v2": v2_result, "infer_frame_v3": v3_result,
              "train_run_v2": train_v2, "train_run_v3": train_v3}

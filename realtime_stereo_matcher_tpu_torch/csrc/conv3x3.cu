@@ -11,9 +11,7 @@
 //       32 -> 4 and 1 -> 32 cases; the v3 U-Net's stem adds 3 -> 32; the
 //       v2 refine entry (disparity + left RGB + warped right RGB) adds
 //       7 -> 32, and its dx 32 -> 7.  The JAX kernel zero-pads any
-//       C_in <= 32 to 32; here each pair is an instantiation, and 7
-//       channels (14-byte bf16 pixels) take the scalar load and store path
-//       of conv_common.cuh.
+//       C_in <= 32 to 32; here each pair is an instantiation.
 //   K2  realtime_stereo_matcher_tpu/kernels/conv3x3.py  fused_conv3x3_s2_flat
 //       (body _build_s2_kernel, launcher _conv_s2_call): the stride-2 3x3
 //       conv that halves H and W.
@@ -33,7 +31,7 @@
 // bf16, does 7.55 GFLOP on 73.7 MB (22 us on memory, 102 FLOP per byte); the
 // 3x3 at 360x640 -> 180x320 1.06 GFLOP on 18.4 MB (5.5 us on memory).
 //
-// Three designs, chosen by stride, dtype and channel pair:
+// Four designs, chosen by stride, dtype and channel pair:
 //   * bf16 32 -> 32, stride 1 (50 of the 56 K1 launches of a 720p frame):
 //     rsm_conv3x3_tc, the tensor-core implicit GEMM of conv_tc.cuh.  A block
 //     owns a 64-column strip and walks down it 8 output rows a step, keeping
@@ -47,6 +45,11 @@
 //     on an H100 (PERF.md): ~0.58 of its bound at dilations 1 and 2 (two
 //     blocks per SM); at dilations 4 and 8 the ring (137 and 190 KB) leaves
 //     one 8-warp block per SM, and those launches lose to cuDNN.
+//   * bf16 stride 1 with a narrow side, 1 / 3 / 4 / 7 -> 32 and 32 -> 1 / 4 /
+//     7 (the refine entries and heads, their dx, the v3 stem): also
+//     rsm_conv3x3_tc, the kernels of conv_narrow_tc.cuh, the same strip walk
+//     and ring with the narrow side padded to 8 channels (taps packed two to
+//     a k16 step for a narrow input; one n8 tile for a narrow output).
 //   * bf16 32 -> 32, stride 2 (K2: 4 of the 6 stride-2 launches of a v1 or
 //     v2 frame; K2-4x4: all 6 of a v3 frame): rsm_conv_s2_tc, the
 //     tensor-core kernel of conv_s2_tc.cuh (KT = 3 or 4 taps a side): the
@@ -54,19 +57,18 @@
 //     de-interleaved by column parity so that a stride-2 A fragment reads 16
 //     consecutive staged pixels without bank conflicts, and a ring of
 //     4 * 8 + KT - 2 input rows for 8 x 32 output tiles.
-//   * float32, and every narrow pair (4, 3, 7 or 1 channels in or out,
-//     among them K2's 3 -> 32 first encoder stage): the CUDA-core template
-//     of conv_common.cuh, float32 FMAs (67 TFLOP/s peak), bound by those
-//     operations.  float32 stays there so that its checks hold at ~3e-6
-//     (TF32 tensor cores would not); a narrow pair would waste most of each
-//     MMA.
-//
+//   * float32 (every pair), and K2's bf16 3 -> 32 first encoder stage: the
+//     CUDA-core template of conv_common.cuh, float32 FMAs (67 TFLOP/s
+//     peak), bound by those operations.  float32 stays there so that its
+//     checks hold at ~3e-6 (TF32 tensor cores would not).
+
 // C interface (bound with ctypes by kernels/_build.py): pointers and the
 // stream are void*, the rest int; the return value is the cudaError_t of the
 // launch (cudaErrorInvalidValue for a shape or plan this file does not take).
 #include <type_traits>
 
 #include "conv_common.cuh"
+#include "conv_narrow_tc.cuh"
 #include "conv_s2_tc.cuh"
 #include "conv_tc.cuh"
 
@@ -86,8 +88,8 @@ cudaError_t dispatch(const void* x, const void* w, const void* scale,
                                         h, wd, ho, wo, dil, pad, act,      \
                                         alpha, st);
   if constexpr (S == 1) {
-    // bf16 32 -> 32 runs on the tensor cores (rsm_conv3x3_tc)
-    if constexpr (std::is_same_v<T, float>) RSM_CASE(32, 32)
+    // float32 only: bf16 runs on the tensor cores (rsm_conv3x3_tc)
+    RSM_CASE(32, 32)
     RSM_CASE(4, 32)
     RSM_CASE(32, 1)
     RSM_CASE(32, 4)  // dx of the 4 -> 32 refine entry conv (training)
@@ -117,14 +119,10 @@ int rsm_conv3x3(const void* x, const void* w, const void* scale,
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (stride != 1 && !(stride == 2 && dil == 1)) return cudaErrorInvalidValue;
-  if (dtype == rsm::kBFloat16) {
-    return stride == 1
-               ? dispatch<__nv_bfloat16, 1>(x, w, scale, bias, res, out, n, h,
-                                            wd, cin, cout, ho, wo, dil, act,
-                                            alpha, st)
-               : dispatch<__nv_bfloat16, 2>(x, w, scale, bias, res, out, n, h,
-                                            wd, cin, cout, ho, wo, dil, act,
-                                            alpha, st);
+  if (dtype == rsm::kBFloat16) {  // stride 1 runs rsm_conv3x3_tc
+    if (stride != 2) return cudaErrorInvalidValue;
+    return dispatch<__nv_bfloat16, 2>(x, w, scale, bias, res, out, n, h, wd,
+                                      cin, cout, ho, wo, dil, act, alpha, st);
   }
   if (dtype == rsm::kFloat32) {
     return stride == 1
@@ -136,21 +134,38 @@ int rsm_conv3x3(const void* x, const void* w, const void* scale,
   return cudaErrorInvalidValue;
 }
 
-// bf16 32 -> 32, stride 1, dilation dil, on the tensor cores, by the plan of
+// bf16, stride 1, dilation dil, on the tensor cores, by the plan of
 // kernels/conv3x3.py (conv3x3_tc_plan): tile th x tw, `ring` input rows,
 // `steps` row tiles per block, grid (gx, gy, gz), `smem` dynamic shared
-// bytes.
+// bytes; cin -> cout 32 -> 32 (conv_tc.cuh) or a narrow pair
+// (conv_narrow_tc.cuh).
 int rsm_conv3x3_tc(const void* x, const void* w, const void* scale,
                    const void* bias, const void* res, void* out, int n, int h,
-                   int wd, int dil, int th, int tw, int ring, int steps,
-                   int gx, int gy, int gz, int smem, int act, float alpha,
-                   int device, void* stream) {
+                   int wd, int cin, int cout, int dil, int th, int tw,
+                   int ring, int steps, int gx, int gy, int gz, int smem,
+                   int act, float alpha, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (dil < 1) return cudaErrorInvalidValue;
-  return rsm::tc::launch_tc<1>(x, w, scale, bias, res, out, n, 1, h, wd, dil,
-                               th, tw, ring, steps, gx, gy, gz, smem, act,
-                               alpha, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cin == 32 && cout == 32)
+    return rsm::tc::launch_tc<1>(x, w, scale, bias, res, out, n, 1, h, wd,
+                                 dil, th, tw, ring, steps, gx, gy, gz, smem,
+                                 act, alpha, st);
+#define RSM_NARROW(CI, CO)                                                 \
+  if (cin == CI && cout == CO)                                             \
+    return rsm::tc::launch_narrow_tc<CI, CO>(x, w, scale, bias, res, out, n, \
+                                             h, wd, dil, th, tw, ring, steps, \
+                                             gx, gy, gz, smem, act, alpha, st);
+  RSM_NARROW(4, 32)
+  RSM_NARROW(7, 32)
+  RSM_NARROW(3, 32)
+  RSM_NARROW(1, 32)
+  RSM_NARROW(32, 1)
+  RSM_NARROW(32, 4)
+  RSM_NARROW(32, 7)
+#undef RSM_NARROW
+  return cudaErrorInvalidValue;
 }
 
 // The 4x4 stride-2 TF-SAME conv in float32: pad_lo = 1, Ho = ceil(H / 2),

@@ -1,8 +1,9 @@
 // Direct convolution with a fused epilogue on the CUDA cores, shared by the
 // 3x3 kernels (conv3x3.cu: stride 1 and stride 2), the 4x4 stride-2 TF-SAME
-// kernel (conv3x3.cu) and the 3x3x3 kernel (conv3d.cu) for float32 and for
-// the narrow channel pairs.  The bf16 32 -> 32 stride-1 3x3 and 3x3x3 convs
-// run on the tensor cores instead (conv_tc.cuh).
+// kernel (conv3x3.cu) and the 3x3x3 kernel (conv3d.cu) for float32, and in
+// bf16 for the stride-2 3 -> 32 conv and the 3x3x3 conv's narrow pairs.  The
+// other bf16 convs run on the tensor cores instead (conv_tc.cuh,
+// conv_narrow_tc.cuh, conv_s2_tc.cuh).
 //
 // Layouts are channels-last and contiguous:
 //   x   (N, D, H, W, CI)        T    (D = 1 for a 2D conv)

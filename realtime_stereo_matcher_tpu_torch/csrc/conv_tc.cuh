@@ -35,6 +35,10 @@
 // bytes) is computed by the Python wrappers (kernels/conv3x3.py,
 // kernels/cost_filter3d.py) and checked here.
 //
+// The ring loader (load_units), the 16-pixel epilogue (store_tile16) and the
+// register staging of narrow pixels (narrow_fetch, narrow_commit) are shared
+// with the narrow-pair kernels (conv_narrow_tc.cuh) and K4 (dw_tc.cuh).
+//
 // RSM_TC_CUT_A, RSM_TC_CUT_MMA and RSM_TC_CUT_STORE cut the A-fragment loads,
 // the MMAs or the output stores out of the kernel (its results are then
 // wrong); no build of the package defines them.  tools/tc_compare.py
@@ -115,6 +119,144 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2_t(uint32_t addr, uint32_t* r) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
+// Narrow pixels (C = 1, 3, 4 or 7 bf16 channels: 2 to 14 bytes, not 16-byte
+// aligned, so cp.async cannot copy them) are staged as one 16-byte chunk a
+// pixel, the channels zero-padded to 8, through registers: narrow_fetch
+// loads a pixel as (C + 1) / 2 packed channel pairs (zero where !ok: the
+// SAME padding), narrow_commit stores them with the padding.  A caller
+// fetches the pixels of step s + 1 before the MMAs of step s and commits
+// them after, so the loads are in flight while the tensor cores run.
+template <int C>
+struct Narrow {
+  static constexpr int kWords = (C + 1) / 2;
+};
+
+template <int C>
+__device__ __forceinline__ void narrow_fetch(const __nv_bfloat16* src,
+                                             bool ok, uint32_t* v) {
+#pragma unroll
+  for (int i = 0; i < Narrow<C>::kWords; ++i) v[i] = 0u;
+  if (!ok) return;
+  if constexpr (C == 4) {  // 8-byte pixels, 8-byte aligned
+    const uint2 u = *reinterpret_cast<const uint2*>(src);
+    v[0] = u.x; v[1] = u.y;
+  } else {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(src);
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c >> 1] |= (uint32_t)h[c] << (16 * (c & 1));
+  }
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1,%2,%3,%4};\n" ::"r"(dst),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w));
+}
+
+template <int C>
+__device__ __forceinline__ void narrow_commit(uint32_t dst, const uint32_t* v) {
+  uint32_t u[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int i = 0; i < Narrow<C>::kWords; ++i) u[i] = v[i];
+  st_shared16(dst, make_uint4(u[0], u[1], u[2], u[3]));
+}
+
+// Input units lo .. hi into their ring slots by cp.async (all threads; zero
+// outside the volume): for KD = 1 a unit is input row u of UP = TW + 2 dil
+// pixels from column x0 - dil, for KD = 3 the depth slab u of (TH + 2) x
+// (TW + 2) pixels from (y0 - 1, x0 - 1).  Ring slot (u - u0) % ring.
+template <int KD, int TH, int TW>
+__device__ __forceinline__ void load_units(uint32_t ring_s,
+                                           const __nv_bfloat16* x, int n,
+                                           int D, int H, int W, int x0, int y0,
+                                           int dil, int UP, int ring, int u0,
+                                           int lo, int hi, int tid) {
+  const int per_unit = UP * 4;  // 16-byte chunks
+  for (int i = tid; i < (hi - lo + 1) * per_unit; i += kThreadsTc) {
+    const int u = lo + i / per_unit, p = (i % per_unit) >> 2, j = i & 3;
+    int iy, ix, iz;
+    if constexpr (KD == 1) {
+      iz = 0; iy = u; ix = x0 - dil + p;
+    } else {
+      iz = u; iy = y0 - 1 + p / (TW + 2); ix = x0 - 1 + p % (TW + 2);
+    }
+    const bool ok = iz >= 0 && iz < D && iy >= 0 && iy < H && ix >= 0 &&
+                    ix < W;
+    const __nv_bfloat16* src =
+        ok ? x + ((((size_t)n * D + iz) * H + iy) * W + ix) * kC + j * 8 : x;
+    cp_async16(ring_s + swz(((u - u0) % ring) * UP + p, j), src, ok);
+  }
+}
+
+// The epilogue of one M-tile of 16 output pixels x 32 channels, from the
+// mma D fragments acc[nt * 4 + e] (n-tile nt): y = acc * scale + bias,
+// activation, bf16, staged through the warp's 1 KB `st` so that residual
+// loads and output stores are 16-byte vectors of consecutive pixels; then
+// + res (rounded to bf16 again).  Pixel p < valid of the 16 is output pixel
+// pix0 + p.
+__device__ __forceinline__ void store_tile16(
+    const float* acc, unsigned char* st, int lane,
+    const float* __restrict__ scale, const float* __restrict__ bias, int act,
+    float alpha, const __nv_bfloat16* __restrict__ res,
+    __nv_bfloat16* __restrict__ out, size_t pix0, int valid) {
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int co = nt * 8 + (lane & 3) * 2;
+    const float s0 = __ldg(scale + co), s1 = __ldg(scale + co + 1);
+    const float b0 = __ldg(bias + co), b1 = __ldg(bias + co + 1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = fmaf(acc[nt * 4 + 2 * h], s0, b0);
+      float v1 = fmaf(acc[nt * 4 + 2 * h + 1], s1, b1);
+      if (act == kActRelu) {
+        v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f);
+      } else if (act == kActLeaky) {
+        v0 = fmaxf(v0, 0.f) + alpha * fminf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f) + alpha * fminf(v1, 0.f);
+      }
+      const int row = (lane >> 2) + 8 * h;
+      *reinterpret_cast<__nv_bfloat162*>(
+          st + swz(row, nt) + (lane & 3) * 4) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < 2; ++it) {
+    const int i = it * 32 + lane, p = i >> 2, j = i & 3;
+    if (p < valid) {
+      const size_t o = (pix0 + p) * kC + j * 8;
+      uint4 v = *reinterpret_cast<const uint4*>(st + swz(p, j));
+      if (res != nullptr) {
+        const uint4 r = *reinterpret_cast<const uint4*>(res + o);
+        __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&v);
+        const __nv_bfloat162* hr = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = __bfloat1622float2(hv[e]);
+          const float2 c = __bfloat1622float2(hr[e]);
+          hv[e] = __floats2bfloat162_rn(a.x + c.x, a.y + c.y);
+        }
+      }
+#ifndef RSM_TC_CUT_STORE
+      *reinterpret_cast<uint4*>(out + o) = v;
+#else
+      (void)v;
+#endif
+    }
+  }
+  __syncwarp();
+}
 
 // grid: KD = 1: x = column strips of TW, y = row chunks of steps * TH,
 //               z = N;
@@ -156,30 +298,17 @@ conv_tc_kernel(const __nv_bfloat16* __restrict__ x,
     n_steps = min(steps, D - blockIdx.y * steps);
   }
 
-  // input units lo .. hi into their ring slots (all threads; zero outside)
-  auto load_units = [&](int lo, int hi) {
-    const int per_unit = UP * 4;  // 16-byte chunks
-    for (int i = tid; i < (hi - lo + 1) * per_unit; i += kThreadsTc) {
-      const int u = lo + i / per_unit, p = (i % per_unit) >> 2, j = i & 3;
-      int iy, ix, iz;
-      if constexpr (KD == 1) {
-        iz = 0; iy = u; ix = x0 - dil + p;
-      } else {
-        iz = u; iy = y0 - 1 + p / (TW + 2); ix = x0 - 1 + p % (TW + 2);
-      }
-      const bool ok = iz >= 0 && iz < D && iy >= 0 && iy < H && ix >= 0 &&
-                      ix < W;
-      const __nv_bfloat16* src =
-          ok ? x + ((((size_t)n * D + iz) * H + iy) * W + ix) * kC + j * 8 : x;
-      cp_async16(ring_s + swz(((u - u0) % ring) * UP + p, j), src, ok);
-    }
+  auto load_units_ = [&](int lo, int hi) {
+    load_units<KD, TH, TW>(ring_s, x, n, D, H, W, x0, y0, dil, UP, ring, u0,
+                           lo, hi, tid);
   };
   // units step s needs beyond those of step s - 1 (all of them for s = 0)
   auto load_step = [&](int s) {
     if constexpr (KD == 1) {
-      load_units(s == 0 ? u0 : y0 + s * TH + dil, y0 + s * TH + TH - 1 + dil);
+      load_units_(s == 0 ? u0 : y0 + s * TH + dil,
+                  y0 + s * TH + TH - 1 + dil);
     } else {
-      load_units(s == 0 ? u0 : u0 + s + 2, u0 + s + 2);
+      load_units_(s == 0 ? u0 : u0 + s + 2, u0 + s + 2);
     }
   };
 
@@ -280,62 +409,16 @@ conv_tc_kernel(const __nv_bfloat16* __restrict__ x,
       }
     }
 
-    // epilogue: y = acc * scale + bias, activation, bf16; staged through this
-    // warp's 1 KB so that residual loads and output stores are 16-byte
-    // vectors of consecutive pixels
+    // epilogue (store_tile16), one M-tile at a time
     unsigned char* st = stage + warp * 16 * kPixBytes;
     const int zz = KD == 1 ? 0 : blockIdx.y * steps + s;
+    const int oy0 = y0 + (KD == 1 ? s * TH : 0) + warp * kRowsPerWarp;
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int co = nt * 8 + (lane & 3) * 2;
-        const float s0 = __ldg(scale + co), s1 = __ldg(scale + co + 1);
-        const float b0 = __ldg(bias + co), b1 = __ldg(bias + co + 1);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float v0 = fmaf(acc[m][nt * 4 + 2 * h], s0, b0);
-          float v1 = fmaf(acc[m][nt * 4 + 2 * h + 1], s1, b1);
-          if (act == kActRelu) {
-            v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f);
-          } else if (act == kActLeaky) {
-            v0 = fmaxf(v0, 0.f) + alpha * fminf(v0, 0.f);
-            v1 = fmaxf(v1, 0.f) + alpha * fminf(v1, 0.f);
-          }
-          const int row = (lane >> 2) + 8 * h;
-          *reinterpret_cast<__nv_bfloat162*>(
-              st + swz(row, nt) + (lane & 3) * 4) = __floats2bfloat162_rn(v0, v1);
-        }
-      }
-      __syncwarp();
-      const int oy =
-          y0 + (KD == 1 ? s * TH : 0) + warp * kRowsPerWarp + m_row(m);
-#pragma unroll
-      for (int it = 0; it < 2; ++it) {
-        const int i = it * 32 + lane, p = i >> 2, j = i & 3;
-        const int ox = x0 + m_col(m) + p;
-        if (oy < H && ox < W) {
-          const size_t o =
-              ((((size_t)n * D + zz) * H + oy) * W + ox) * kC + j * 8;
-          uint4 v = *reinterpret_cast<const uint4*>(st + swz(p, j));
-          if (res != nullptr) {
-            const uint4 r = *reinterpret_cast<const uint4*>(res + o);
-            __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&v);
-            const __nv_bfloat162* hr =
-                reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const float2 a = __bfloat1622float2(hv[e]);
-              const float2 c = __bfloat1622float2(hr[e]);
-              hv[e] = __floats2bfloat162_rn(a.x + c.x, a.y + c.y);
-            }
-          }
-#ifndef RSM_TC_CUT_STORE
-          *reinterpret_cast<uint4*>(out + o) = v;
-#endif
-        }
-      }
-      __syncwarp();
+      const int oy = oy0 + m_row(m), ox = x0 + m_col(m);
+      store_tile16(acc[m], st, lane, scale, bias, act, alpha, res, out,
+                   (((size_t)n * D + zz) * H + oy) * W + ox,
+                   oy < H ? min(16, W - ox) : 0);
     }
     __syncthreads();  // the ring slots of step s may be refilled now
   }

@@ -16,8 +16,7 @@
 //   dW of flat_conv3d (kernels/train_conv3d.py), which the JAX package left
 //   to 18 XLA dots.  The channel pairs are those of the training convs:
 //   32 -> 32, the refine entries 4 -> 32 (v1) and 7 -> 32 (v2), the refine
-//   head 32 -> 1; 7 channels (14-byte bf16 pixels) are staged with scalar
-//   loads.
+//   head 32 -> 1.
 //
 // What bounds it on an H100: the largest 2D launch of a training step, 4 x
 // 480 x 640 at 32 -> 32 channels in bf16, reads 157 MB and does 22.6 GFLOP,
@@ -27,17 +26,16 @@
 // operations, 0.026 ms at 989 TFLOP/s.  On the CUDA cores' float32 FMAs
 // (67 TFLOP/s) neither can go below 0.34 / 0.38 ms.
 //
-// Two designs, chosen by dtype and channel pair (kernels/train_conv.py):
-//   * bf16 32 -> 32, 2D at every dilation and 3D (all but 6 of the 59
-//     launches of a v1 or v2 training step): rsm_dw_reduce_tc, the
-//     tensor-core kernel of dw_tc.cuh, a transposed implicit GEMM (M = tap x
-//     ci, N = co, K = pixels) on mma.sync with x and g staged by cp.async;
-//     one partial dW per block (about one block an SM), then dw_sum_kernel.
-//   * float32, and the narrow pairs 4 -> 32, 7 -> 32 and 32 -> 1: the
-//     CUDA-core kernel below, float32 FMAs, so that the float32 checks hold
-//     at ~1e-6 relative (TF32 tensor cores would not) and a narrow pair
-//     wastes no MMA rows.
-//
+// Two designs, chosen by dtype (kernels/train_conv.py):
+//   * bf16, every pair (all 59 launches of a v1 or v2 training step):
+//     rsm_dw_reduce_tc, the tensor-core kernel of dw_tc.cuh, a transposed
+//     implicit GEMM (M = tap x ci, N = co, K = pixels) on mma.sync with the
+//     32-channel operands staged by cp.async and the narrow ones (x of 4 or
+//     7 channels, g of 1) through registers, padded to 8 channels; one
+//     partial dW per block (about one block an SM), then dw_sum_kernel.
+//   * float32: the CUDA-core kernel below, float32 FMAs, so that the
+//     float32 checks hold at ~1e-6 relative (TF32 tensor cores would not).
+
 // The CUDA-core design.  The TPU kernel streamed the whole image through one
 // core and kept its sum in VMEM from one grid step to the next; blocks on
 // Hopper run in parallel and in no order, so the sum is taken in two passes,
@@ -270,55 +268,56 @@ cudaError_t launch(const void* x, const void* g, float* work, float* out,
   return cudaGetLastError();
 }
 
-// One CUDA-core launch in float32, or in bf16 for the narrow pairs (bf16
-// 32 -> 32 runs on the tensor cores, rsm_dw_reduce_tc).
+// One CUDA-core launch, float32 (bf16 runs on the tensor cores,
+// rsm_dw_reduce_tc).
 template <int KD, int CI, int CO>
 cudaError_t dispatch(const void* x, const void* g, float* work, float* out,
                      int dtype, int n, int d, int h, int w, int dil,
                      cudaStream_t st) {
   if (dtype == rsm::kFloat32)
     return launch<float, KD, CI, CO>(x, g, work, out, n, d, h, w, dil, st);
-  if constexpr (CI != 32 || CO != 32) {
-    if (dtype == rsm::kBFloat16)
-      return launch<__nv_bfloat16, KD, CI, CO>(x, g, work, out, n, d, h, w,
-                                               dil, st);
-  }
   return cudaErrorInvalidValue;
 }
 
 // The tensor-core kernel by a plan of kernels/train_conv.py (dw_tc_plan),
 // then the fixed-order sum of its gx * gy partials.  cudaErrorInvalidValue
 // for a plan this kernel does not take.
-template <int KD>
+template <int KD, int CI, int CO>
 cudaError_t launch_dw_tc(const void* x, const void* g, float* work,
                          long long work_floats, float* out, int n, int d,
                          int h, int w, int dil, int th, int tw, int ring,
                          int steps, int gx, int gy, int gz, int smem,
                          cudaStream_t st) {
   using namespace rsm::tc;
+  using P = DwPair<CI, CO>;
   const int rows = n * d * h;
   const int tiles = (rows + kDwTH - 1) / kDwTH;
-  // a staged row is at most one 16-byte chunk a thread
+  // a staged 32-channel row is at most one 16-byte chunk a thread, a later
+  // step's narrow pixels at most kDwPre a thread
+  const int x_staged = CI == kC ? (tw + 2 * dil) * 4 : th * (tw + 2 * dil);
+  const int g_staged = CO == kC ? tw * 4 : th * tw;
+  const int x_most = CI == kC ? kDwThreads : kDwPre * kDwThreads;
+  const int g_most = CO == kC ? kDwThreads : kDwPre * kDwThreads;
   const bool tile_ok = th == kDwTH && tw >= 16 && tw % 16 == 0 &&
-                       (tw + 2 * dil) * 4 <= kDwThreads &&
+                       x_staged <= x_most && g_staged <= g_most &&
                        ring == 2 * th + 2 * dil && steps >= 1;
   const bool grid_ok = gx == (w + tw - 1) / tw &&
                        gy == (tiles + steps - 1) / steps && gy <= 65535 &&
                        gz == KD;
-  if (!tile_ok || !grid_ok || smem != dw_smem_bytes(tw, dil, ring) ||
-      work_floats != (long long)gx * gy * gz * kDwOut)
+  if (!tile_ok || !grid_ok || smem != dw_smem_bytes<CI, CO>(tw, dil, ring) ||
+      work_floats != (long long)gx * gy * gz * P::kOut)
     return cudaErrorInvalidValue;
   static int opted[64] = {};  // per device, for this instantiation
-  cudaError_t err = rsm::opt_in_smem(dw_tc_kernel<KD>, smem, opted);
+  cudaError_t err = rsm::opt_in_smem(dw_tc_kernel<KD, CI, CO>, smem, opted);
   if (err != cudaSuccess) return err;
-  dw_tc_kernel<KD><<<dim3(gx, gy, gz), kDwThreads, smem, st>>>(
+  dw_tc_kernel<KD, CI, CO><<<dim3(gx, gy, gz), kDwThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(g), work, d, h, w, rows, dil, tw,
       ring, steps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dw_sum_kernel<<<(KD * kDwOut + 31) / 32, dim3(32, 8), 0, st>>>(
-      work, out, gx * gy, KD * kDwOut);
+  dw_sum_kernel<<<(KD * P::kOut + 31) / 32, dim3(32, 8), 0, st>>>(
+      work, out, gx * gy, KD * P::kOut);
   return cudaGetLastError();
 }
 
@@ -350,7 +349,7 @@ long long rsm_dw_workspace(int n, int d, int h, int w, int cin, int cout,
   return -1;
 }
 
-// x (n, d, h, w, cin), g (n, d, h, w, cout) of `dtype`; work holds
+// x (n, d, h, w, cin), g (n, d, h, w, cout) float32 (`dtype`); work holds
 // rsm_dw_workspace(...) floats; out (kd, 3, 3, cin, cout) float32.
 int rsm_dw_reduce(const void* x, const void* g, void* work, void* out,
                   int dtype, int n, int d, int h, int w, int cin, int cout,
@@ -369,26 +368,29 @@ int rsm_dw_reduce(const void* x, const void* g, void* work, void* out,
   return cudaErrorInvalidValue;
 }
 
-// bf16 32 -> 32 on the tensor cores by the plan of kernels/train_conv.py
+// bf16 on the tensor cores by the plan of kernels/train_conv.py
 // (dw_tc_plan): kDwTH-row steps of `tw`-column strips, `ring` x rows,
 // `steps` steps a block, grid (gx, gy, gz = kd), `smem` dynamic shared
-// bytes; work holds work_floats = gx * gy * kd * 9216 floats.
+// bytes; work holds work_floats = gx * gy * kd * 9 * cin * cout floats.
 int rsm_dw_reduce_tc(const void* x, const void* g, void* work, void* out,
                      long long work_floats, int n, int d, int h, int w,
-                     int kd, int dil, int th, int tw, int ring, int steps,
-                     int gx, int gy, int gz, int smem, int device,
-                     void* stream) {
+                     int cin, int cout, int kd, int dil, int th, int tw,
+                     int ring, int steps, int gx, int gy, int gz, int smem,
+                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (!valid_args(kd, dil)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wk = static_cast<float*>(work);
   float* o = static_cast<float*>(out);
-  return kd == 1
-             ? launch_dw_tc<1>(x, g, wk, work_floats, o, n, d, h, w, dil, th,
-                               tw, ring, steps, gx, gy, gz, smem, st)
-             : launch_dw_tc<3>(x, g, wk, work_floats, o, n, d, h, w, dil, th,
-                               tw, ring, steps, gx, gy, gz, smem, st);
+#define RSM_CASE(KD, CI, CO)                                                \
+  if (kd == KD && cin == CI && cout == CO)                                  \
+    return launch_dw_tc<KD, CI, CO>(x, g, wk, work_floats, o, n, d, h, w,   \
+                                    dil, th, tw, ring, steps, gx, gy, gz,   \
+                                    smem, st);
+  RSM_DW_CASES(RSM_CASE)
+#undef RSM_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // extern "C"

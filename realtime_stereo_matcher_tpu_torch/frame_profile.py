@@ -9,7 +9,9 @@ Builds the model (v1 by default, or v2 or v3) as ``bench.py`` does, runs
 two warm-up frames, and prints one JSON
 line: per group of device kernels (each hand-written kernel by its template
 shape, and the plain PyTorch ops by name) the device ms per frame and the
-launches per frame, plus the device busy share over the profiled span
+launches per frame, the port kernels of narrow channel pairs (any but
+32 -> 32) summed by route (tensor cores, CUDA cores), plus the device busy
+share over the profiled span
 (kernel time / span from the first kernel's start to the last one's end).
 Kernels of one stream do not overlap, so the sum is the busy time.
 
@@ -47,11 +49,16 @@ _CONV = re.compile(r"conv_kernel<([^,]+),\s*(\d+),\s*(\d+),\s*(\d+),"
 _CONV_TC = re.compile(r"conv_tc_kernel<\s*(?:\(int\)\s*)?(\d+)")
 # dw_partial_kernel<T, KD, CI, CO>
 _DW = re.compile(r"dw_partial_kernel<([^,]+),\s*(\d+),\s*(\d+),\s*(\d+)>")
-# rsm::tc::dw_tc_kernel<KD> and rsm::tc::conv_s2_tc_kernel<KT>: bf16 32 -> 32
-# K4 (2D, 3D) and the stride-2 convs (KT = 3: K2, KT = 4: K2-4x4) on the
-# tensor cores
-_DW_TC = re.compile(r"dw_tc_kernel<\s*(?:\(int\)\s*)?(\d+)")
-_S2_TC = re.compile(r"conv_s2_tc_kernel<\s*(?:\(int\)\s*)?(\d+)")
+# rsm::tc::dw_tc_kernel<KD, CI, CO> (CI, CO 32, 32 where absent) and
+# rsm::tc::conv_s2_tc_kernel<KT>: bf16 K4 (2D, 3D) and the bf16 32 -> 32
+# stride-2 convs (KT = 3: K2, KT = 4: K2-4x4) on the tensor cores
+_INT = r"\s*(?:\(int\)\s*)?(\d+)"
+_DW_TC = re.compile(rf"dw_tc_kernel<{_INT}(?:,{_INT},{_INT})?")
+_S2_TC = re.compile(rf"conv_s2_tc_kernel<{_INT}")
+# rsm::tc::conv_nin_tc_kernel<CI> / conv_nout_tc_kernel<CO>: the bf16
+# stride-1 narrow pairs of K1 (CI -> 32, 32 -> CO) on the tensor cores
+_NIN_TC = re.compile(rf"conv_nin_tc_kernel<{_INT}")
+_NOUT_TC = re.compile(rf"conv_nout_tc_kernel<{_INT}")
 
 
 def kernel_group(name: str) -> str:
@@ -67,7 +74,14 @@ def kernel_group(name: str) -> str:
         return f"{kernel} 32->32"
     m = _DW_TC.search(name)
     if m:
-        return f"dw_reduce{' 3D' if m.group(1) == '3' else ''} 32->32"
+        kd, ci, co = m.group(1), m.group(2) or "32", m.group(3) or "32"
+        return f"dw_reduce{' 3D' if kd == '3' else ''} {ci}->{co}"
+    m = _NIN_TC.search(name)
+    if m:
+        return f"fused_conv3x3 {m.group(1)}->32"
+    m = _NOUT_TC.search(name)
+    if m:
+        return f"fused_conv3x3 32->{m.group(1)}"
     m = _CONV.search(name)
     if m:
         _, ci, co, s, kd, k = m.groups()
@@ -85,7 +99,18 @@ def kernel_group(name: str) -> str:
     return "plain: " + name.split("<")[0].split("(")[0][:80].strip()
 
 
-def _frame_fn(dev, seed, model="v1"):
+def kernel_route(name: str) -> str | None:
+    """Where a port kernel runs: "tensor cores" or "cuda cores"; None for
+    anything else (plain PyTorch, the partial sums of K4)."""
+    if any(r.search(name) for r in (_CONV_TC, _S2_TC, _DW_TC, _NIN_TC,
+                                    _NOUT_TC)):
+        return "tensor cores"
+    if _CONV.search(name) or _DW.search(name):
+        return "cuda cores"
+    return None
+
+
+def frame_fn(dev, seed, model="v1"):
     """One bf16 720p frame of ``model``'s kernel path."""
     model = build_model(bench.model_config(model), device=dev,
                         generator=torch.Generator().manual_seed(seed))
@@ -96,7 +121,7 @@ def _frame_fn(dev, seed, model="v1"):
     return lambda: forward(left, right)
 
 
-def _train_step_fn(dev, seed, model="v1"):
+def train_step_fn(dev, seed, model="v1"):
     """One bf16 kernel-path training step of ``model``'s repo config."""
     cfg = load_config(bench.MODELS[model][0])
     model, tx, _, state = create_train_state(cfg, seed=seed, device=dev)
@@ -111,9 +136,10 @@ def _train_step_fn(dev, seed, model="v1"):
 
 def profile_device(run, frames: int) -> dict:
     """``run()`` ``frames`` times under ``torch.profiler`` after two
-    warm-up calls: device ms and launches per call by :func:`kernel_group`,
-    the device ms per call in all and the span from the first kernel's
-    start to the last one's end, per call."""
+    warm-up calls: device ms, launches per call and route
+    (:func:`kernel_route`) by :func:`kernel_group`, the narrow pairs'
+    kernels by route, the device ms per call in all and the span from the
+    first kernel's start to the last one's end, per call."""
     for _ in range(2):
         run()
     torch.cuda.synchronize()
@@ -126,6 +152,9 @@ def profile_device(run, frames: int) -> dict:
 
     time_us = collections.Counter()
     count = collections.Counter()
+    routes = {}
+    narrow_us = collections.Counter()  # by route, pairs other than 32 -> 32
+    narrow_n = collections.Counter()
     starts, ends = [], []
     for evt in prof.events():
         # device kernels only: a user annotation (the optimizer's step
@@ -137,22 +166,32 @@ def profile_device(run, frames: int) -> dict:
         group = kernel_group(evt.name)
         time_us[group] += evt.time_range.elapsed_us()
         count[group] += 1
+        route = kernel_route(evt.name)
+        routes.setdefault(group, set()).add(route)
+        if route and not group.endswith(" 32->32"):
+            narrow_us[route] += evt.time_range.elapsed_us()
+            narrow_n[route] += 1
         starts.append(evt.time_range.start)
         ends.append(evt.time_range.end)
     if not time_us:
         raise RuntimeError("the profiler recorded no device kernels")
     groups = {g: {"ms_per_frame": t / 1e3 / frames,
-                  "launches_per_frame": count[g] / frames}
+                  "launches_per_frame": count[g] / frames,
+                  "route": " + ".join(sorted(r or "plain"
+                                             for r in routes[g]))}
               for g, t in time_us.most_common()}
+    narrow = {r: {"ms_per_frame": narrow_us[r] / 1e3 / frames,
+                  "launches_per_frame": narrow_n[r] / frames}
+              for r in ("tensor cores", "cuda cores")}
     return {"device_ms_per_frame": sum(time_us.values()) / 1e3 / frames,
             "span_ms_per_frame": (max(ends) - min(starts)) / 1e3 / frames,
-            "groups": groups}
+            "groups": groups, "narrow_pairs": narrow}
 
 
 def profile_frames(frames: int = 8, seed: int = 0, train: bool = False,
                    model: str = "v1") -> dict:
     dev = torch.device("cuda", 0)
-    run = (_train_step_fn if train else _frame_fn)(dev, seed, model)
+    run = (train_step_fn if train else frame_fn)(dev, seed, model)
     prof = profile_device(run, frames)
     return {"unit": "train step" if train else "frame", "frames": frames,
             "model": model, "device": torch.cuda.get_device_name(dev),
@@ -160,7 +199,7 @@ def profile_frames(frames: int = 8, seed: int = 0, train: bool = False,
             "span_ms_per_frame": prof["span_ms_per_frame"],
             "busy_share": (prof["device_ms_per_frame"]
                            / prof["span_ms_per_frame"]),
-            "groups": prof["groups"]}
+            "groups": prof["groups"], "narrow_pairs": prof["narrow_pairs"]}
 
 
 def main(argv=None) -> int:

@@ -43,9 +43,9 @@ _SIGNATURES = {
     # x, w, scale, bias, res, out, dtype, n, h, w, cin, cout, ho, wo,
     # stride, dilation, act, alpha, device, stream
     "rsm_conv3x3": [_P] * 6 + [_I] * 11 + [ctypes.c_float, _I, _P],
-    # x, w, scale, bias, res, out, n, h, w, dilation, th, tw, ring, steps,
-    # grid x, y, z, shared bytes, act, alpha, device, stream
-    "rsm_conv3x3_tc": [_P] * 6 + [_I] * 13 + [ctypes.c_float, _I, _P],
+    # x, w, scale, bias, res, out, n, h, w, cin, cout, dilation, th, tw,
+    # ring, steps, grid x, y, z, shared bytes, act, alpha, device, stream
+    "rsm_conv3x3_tc": [_P] * 6 + [_I] * 15 + [ctypes.c_float, _I, _P],
     # x, w, scale, bias, out, n, d, h, w, th, tw, ring, steps, grid x, y, z,
     # shared bytes, act, device, stream
     "rsm_conv3d_tc": [_P] * 5 + [_I] * 14 + [_P],
@@ -59,9 +59,9 @@ _SIGNATURES = {
     # x, w, scale, bias, out, n, h, w, ho, wo, taps, th, tw, ring, steps,
     # grid x, y, z, shared bytes, act, alpha, device, stream
     "rsm_conv_s2_tc": [_P] * 5 + [_I] * 15 + [ctypes.c_float, _I, _P],
-    # x, g, work, out, work floats, n, d, h, w, kd, dil, th, tw, ring, steps,
-    # grid x, y, z, shared bytes, device, stream
-    "rsm_dw_reduce_tc": [_P] * 4 + [ctypes.c_longlong] + [_I] * 15 + [_P],
+    # x, g, work, out, work floats, n, d, h, w, cin, cout, kd, dil, th, tw,
+    # ring, steps, grid x, y, z, shared bytes, device, stream
+    "rsm_dw_reduce_tc": [_P] * 4 + [ctypes.c_longlong] + [_I] * 17 + [_P],
 }
 
 

@@ -14,11 +14,13 @@ On a CUDA tensor it launches a hand-written kernel of ``csrc/conv3x3.cu``
 (stride 1 counts as ``fused_conv3x3``, stride 2 as ``fused_conv3x3_s2``, the
 two TPU kernels it replaces); on a CPU tensor it runs
 :func:`fused_conv3x3_plain`.  There is no fallback from the one to the other.
-Which kernel runs is decided by dtype and channel pair: bf16 32 -> 32 runs on
-the tensor cores, at stride 1 ``rsm_conv3x3_tc`` (``csrc/conv_tc.cuh``) by
-the tile plan of :func:`conv3x3_tc_plan`, at stride 2 ``rsm_conv_s2_tc``
-(``csrc/conv_s2_tc.cuh``) by :func:`conv_s2_tc_plan`; float32 and the narrow
-pairs run the CUDA-core template (``rsm_conv3x3``, ``csrc/conv_common.cuh``).
+Which kernel runs is decided by dtype, stride and channel pair: in bf16, at
+stride 1 every pair runs on the tensor cores, ``rsm_conv3x3_tc`` by the tile
+plan of :func:`conv3x3_tc_plan` (32 -> 32: ``csrc/conv_tc.cuh``; a narrow
+side, ``TC_NARROW``: ``csrc/conv_narrow_tc.cuh``), and at stride 2 the
+32 -> 32 pair runs ``rsm_conv_s2_tc`` (``csrc/conv_s2_tc.cuh``) by
+:func:`conv_s2_tc_plan`; float32, and the bf16 stride-2 3 -> 32 pair, run
+the CUDA-core template (``rsm_conv3x3``, ``csrc/conv_common.cuh``).
 
 ``fused_conv4x4_s2`` is the v3 U-Net's downsampler, a 4x4 stride-2 conv with
 TF-SAME padding (output pixel X reads input 2X-1 .. 2X+2, so H and W become
@@ -56,6 +58,12 @@ _ACT_CODES = {"none": 0, "relu": 1}  # a float is leaky ReLU (code 2)
 TC_CHANNELS = (32, 32)
 TC_PIX_BYTES = 64
 TC_STAGE_BYTES = 8 * 16 * TC_PIX_BYTES
+# The stride-1 pairs with a narrow side, on the tensor cores of
+# csrc/conv_narrow_tc.cuh: the narrow side padded to 8 channels, a staged
+# narrow pixel 16 bytes; weights 80 rows (9 taps x 8 input channels, padded
+# to 5 k16 steps) of 32 output channels, or 288 rows of 8
+TC_NARROW = {(1, 32), (3, 32), (4, 32), (7, 32), (32, 1), (32, 4), (32, 7)}
+TC_NARROW_PIX_BYTES = 16
 SMEM_RESERVED = 1024
 GRID_YZ_MAX = 65535
 K1_TILE = (8, 64)   # output rows x columns of one step (csrc Tile<1>)
@@ -125,10 +133,27 @@ def _pick_steps(units: int, blocks_per_chunk: int, slots: int, cost):
     return min(range(1, units + 1), key=total)
 
 
+def conv3x3_tc_smem(dilation: int, ring: int, cin: int = 32,
+                    cout: int = 32) -> int:
+    """Dynamic shared memory of a stride-1 tensor-core plan: the weights,
+    the ring of input rows (64 + 2 d pixels each) and 8 KB of output
+    staging (csrc ``smem_bytes<1>``, ``nin_smem_bytes``,
+    ``nout_smem_bytes``)."""
+    tw = K1_TILE[1]
+    if (cin, cout) == TC_CHANNELS:
+        weights, pix = 9 * 32 * TC_PIX_BYTES, TC_PIX_BYTES
+    elif cout == 32:  # narrow in: 80 rows of 32 output channels
+        weights, pix = 80 * TC_PIX_BYTES, TC_NARROW_PIX_BYTES
+    else:             # narrow out: 288 rows of 8 output channels
+        weights, pix = 9 * 32 * TC_NARROW_PIX_BYTES, TC_PIX_BYTES
+    return weights + ring * (tw + 2 * dilation) * pix + TC_STAGE_BYTES
+
+
 @functools.cache  # called on every launch: the frame's host time
-def conv3x3_tc_plan(n: int, h: int, w: int, dilation: int,
-                    card: Card) -> TcPlan:
-    """Tile plan of the bf16 32 -> 32 stride-1 3x3 conv on the tensor cores.
+def conv3x3_tc_plan(n: int, h: int, w: int, dilation: int, card: Card,
+                    cin: int = 32, cout: int = 32) -> TcPlan:
+    """Tile plan of a bf16 stride-1 3x3 conv on the tensor cores, 32 -> 32
+    or a ``TC_NARROW`` pair.
 
     A block walks down a 64-column strip, 8 output rows a step, with a ring
     of 2 * 8 + 2 d input rows of 64 + 2 d pixels; the strips of a row band
@@ -136,10 +161,11 @@ def conv3x3_tc_plan(n: int, h: int, w: int, dilation: int,
     Rows per block are chosen so that the launch fills ``card``: full waves
     times the rows one block loads (its bytes: the kernel is memory-bound).
     Cached: the search costs tens of microseconds of host time a launch."""
+    if (cin, cout) != TC_CHANNELS and (cin, cout) not in TC_NARROW:
+        raise ValueError(f"no tensor-core kernel for {cin} -> {cout}")
     th, tw = K1_TILE
     ring = 2 * th + 2 * dilation
-    smem = 9 * 32 * TC_PIX_BYTES + ring * (tw + 2 * dilation) * TC_PIX_BYTES \
-        + TC_STAGE_BYTES
+    smem = conv3x3_tc_smem(dilation, ring, cin, cout)
     tiles_h, tiles_w = -(-h // th), -(-w // tw)
     slots = card.sms * tc_blocks_per_sm(smem, card)
     steps = _pick_steps(tiles_h, tiles_w * n, slots,
@@ -261,11 +287,12 @@ def fused_conv3x3(x, w, scale, bias, *, stride=1, dilation=1, act="relu",
     Arguments as in :func:`fused_conv3x3_plain`.  On CUDA: x, w and residual
     share one dtype (float32 or bfloat16), scale and bias are float32, all
     are contiguous, and (C_in, C_out) is one of ``SUPPORTED_CHANNELS``.
-    Routing on CUDA, by dtype and channel pair: bf16 ``TC_CHANNELS``
-    launches a tensor-core kernel, at stride 1 ``rsm_conv3x3_tc`` with
-    :func:`conv3x3_tc_plan`, at stride 2 ``rsm_conv_s2_tc`` with
-    :func:`conv_s2_tc_plan`; every other call the CUDA-core template
-    (``rsm_conv3x3``).  All count as ``KERNEL_NAMES[stride]``."""
+    Routing on CUDA, by dtype, stride and channel pair: bf16 at stride 1
+    (``TC_CHANNELS`` and ``TC_NARROW``) launches ``rsm_conv3x3_tc`` with
+    :func:`conv3x3_tc_plan`, bf16 ``TC_CHANNELS`` at stride 2
+    ``rsm_conv_s2_tc`` with :func:`conv_s2_tc_plan`; every other call the
+    CUDA-core template (``rsm_conv3x3``).  All count as
+    ``KERNEL_NAMES[stride]``."""
     if x.device.type == "cpu":
         return fused_conv3x3_plain(x, w, scale, bias, stride=stride,
                                    dilation=dilation, act=act,
@@ -304,14 +331,15 @@ def fused_conv3x3(x, w, scale, bias, *, stride=1, dilation=1, act="relu",
     if x.dtype == torch.bfloat16 and (cin, cout) == TC_CHANNELS and stride == 2:
         _launch_s2_tc(x, w, scale, bias, out, 3, act_code, alpha, name)
         return out
-    if x.dtype == torch.bfloat16 and (cin, cout) == TC_CHANNELS and stride == 1:
-        plan = conv3x3_tc_plan(n, h, wd, dilation, card_of(dev.index))
+    if x.dtype == torch.bfloat16 and stride == 1:
+        plan = conv3x3_tc_plan(n, h, wd, dilation, card_of(dev.index), cin,
+                               cout)
         rc = _build.library().rsm_conv3x3_tc(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             residual.data_ptr() if residual is not None else None,
-            out.data_ptr(), n, h, wd, dilation, plan.th, plan.tw, plan.ring,
-            plan.steps, *plan.grid, plan.smem, act_code, alpha, dev.index,
-            _build.stream_of(x))
+            out.data_ptr(), n, h, wd, cin, cout, dilation, plan.th, plan.tw,
+            plan.ring, plan.steps, *plan.grid, plan.smem, act_code, alpha,
+            dev.index, _build.stream_of(x))
         _build.check(rc, name)
         _build.LAUNCHES[name] += 1
         return out

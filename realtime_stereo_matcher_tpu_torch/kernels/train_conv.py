@@ -11,11 +11,10 @@ kernels K4 ``dw_reduce`` and K5 ``flat_conv3x3`` of
   the dW of :func:`~realtime_stereo_matcher_tpu_torch.kernels.train_conv3d.flat_conv3d`.
   On a CUDA tensor both launch a hand-written kernel of ``csrc/dw_reduce.cu``
   (counted as ``dw_reduce``, one count a call, its fixed-order sum of
-  partials included): bf16 32 -> 32 the tensor-core kernel
+  partials included): bf16, every pair, the tensor-core kernel
   (``rsm_dw_reduce_tc``, ``csrc/dw_tc.cuh``) by the plan of
-  :func:`dw_tc_plan`, float32 and the narrow pairs the CUDA-core kernel
-  (``rsm_dw_reduce``); on a CPU tensor they run :func:`dw_reduce_plain` /
-  :func:`dw_reduce3d_plain`.
+  :func:`dw_tc_plan`, float32 the CUDA-core kernel (``rsm_dw_reduce``); on
+  a CPU tensor they run :func:`dw_reduce_plain` / :func:`dw_reduce3d_plain`.
 * :func:`flat_conv3x3` -- a ``torch.autograd.Function``: a pure conv (no
   epilogue) whose forward is K1 with an identity epilogue, whose dx is K1 on
   the cotangent with the weights rotated 180 degrees and channel-transposed
@@ -45,7 +44,8 @@ import torch.nn.functional as F
 
 from realtime_stereo_matcher_tpu_torch.kernels import _build
 from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
-    TC_CHANNELS,
+    SMEM_RESERVED,
+    TC_NARROW_PIX_BYTES,
     TC_PIX_BYTES,
     Card,
     _pick_steps,
@@ -59,15 +59,22 @@ SUPPORTED_CHANNELS = {1: {(32, 32), (4, 32), (7, 32), (32, 1)},
                       3: {(32, 32), (32, 1)}}
 MAX_DILATION = 8  # the kernel stages a halo of 8 columns
 
-# The tensor-core kernel of csrc/dw_tc.cuh (bf16 32 -> 32): steps of 8 rows
-# of g, one partial dW of 9 x 32 x 32 floats a block for each depth tap, 12
-# warps and ~150 registers a thread, so one block an SM.
+# The tensor-core kernel of csrc/dw_tc.cuh (bf16, every pair): steps of 8
+# rows of g, one partial dW of 9 x C_in x C_out floats a block for each depth
+# tap, 12 warps; 160 registers a thread at 32 -> 32 (one block an SM), 80 at
+# a narrow pair (two).  A 32-channel operand is staged 64 bytes a pixel, a
+# narrow one 16.
 DW_TC_ROWS = 8
 DW_TC_OUT = 9 * 32 * 32
 DW_TC_THREADS = 384
-# strip widths a plan may take: a staged x row of tw + 2 d pixels is at most
-# one 16-byte chunk a thread
+DW_TC_PRE = 2  # narrow pixels a thread stages ahead (csrc kDwPre)
+# strip widths a plan may take: a staged 32-channel x row of tw + 2 d pixels
+# is at most one 16-byte chunk a thread
 DW_TC_WIDTHS = (16, 32, 48, 64, 80)
+
+
+def _dw_pix_bytes(c: int) -> int:
+    return TC_PIX_BYTES if c == 32 else TC_NARROW_PIX_BYTES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,44 +100,62 @@ class DwPlan:
     work_floats: int
 
 
-def dw_strip_width(w: int, dilation: int, card: Card) -> int:
+def dw_strip_width(w: int, dilation: int, card: Card, cin: int = 32,
+                   cout: int = 32) -> int:
     """Columns of a block's strip: of ``DW_TC_WIDTHS`` whose plan fits the
     card, the one that pads ``w`` least, the widest of those (it runs more
     MMAs for each step's fixed costs, and loads less halo a pixel)."""
-    fits = [tw for tw in DW_TC_WIDTHS
-            if (tw + 2 * dilation) * 4 <= DW_TC_THREADS
-            and dw_tc_smem(tw, dilation, 2 * DW_TC_ROWS + 2 * dilation)
-            <= card.smem_per_block]
-    return min(fits, key=lambda tw: (-(-w // tw) * tw, -tw))
+    def fits(tw):
+        staged = ((tw + 2 * dilation) * 4 if cin == 32 else
+                  DW_TC_ROWS * (tw + 2 * dilation) / DW_TC_PRE)
+        return (staged <= DW_TC_THREADS and dw_tc_smem(
+            tw, dilation, 2 * DW_TC_ROWS + 2 * dilation, cin, cout)
+            <= card.smem_per_block)
+    return min(filter(fits, DW_TC_WIDTHS),
+               key=lambda tw: (-(-w // tw) * tw, -tw))
 
 
-def dw_tc_smem(tw: int, dilation: int, ring: int) -> int:
+def dw_tc_smem(tw: int, dilation: int, ring: int, cin: int = 32,
+               cout: int = 32) -> int:
     """Dynamic shared memory of a plan: the x ring and two g buffers, or the
-    block's 36 KB partial dW if that is more (csrc ``dw_smem_bytes``)."""
-    stream = (ring * (tw + 2 * dilation) + 2 * DW_TC_ROWS * tw) * TC_PIX_BYTES
-    return max(stream, DW_TC_OUT * 4)
+    block's partial dW if that is more (csrc ``dw_smem_bytes``)."""
+    stream = (ring * (tw + 2 * dilation) * _dw_pix_bytes(cin)
+              + 2 * DW_TC_ROWS * tw * _dw_pix_bytes(cout))
+    return max(stream, 9 * cin * cout * 4)
+
+
+def dw_blocks_per_sm(smem: int, card: Card, cin: int = 32,
+                     cout: int = 32) -> int:
+    """Blocks of 384 threads an SM of ``card`` holds: one at 32 -> 32 (96
+    accumulators a thread), up to two at a narrow pair (csrc
+    ``DwPair::kBlocks``), as the shared memory allows."""
+    most = 1 if (cin, cout) == (32, 32) else 2
+    return max(1, min(most, card.smem_per_sm // (smem + SMEM_RESERVED)))
 
 
 @functools.cache  # called on every launch
 def dw_tc_plan(n: int, d: int, h: int, w: int, kd: int, dilation: int,
-               card: Card) -> DwPlan:
-    """Tile plan of the bf16 32 -> 32 ``dw_reduce`` (``kd`` 1) or
-    ``dw_reduce3d`` (``kd`` 3) on the tensor cores.
+               card: Card, cin: int = 32, cout: int = 32) -> DwPlan:
+    """Tile plan of the bf16 ``dw_reduce`` (``kd`` 1) or ``dw_reduce3d``
+    (``kd`` 3) on the tensor cores, ``cin`` -> ``cout`` one of
+    ``SUPPORTED_CHANNELS[kd]``.
 
-    One block an SM (its 12 warps hold 96 float32 accumulators a thread);
-    strip width by :func:`dw_strip_width`; rows per block chosen so that
-    the launch on ``card`` ends soonest: full waves times one block's steps
+    One block an SM at 32 -> 32 (its 12 warps hold 96 float32 accumulators
+    a thread), up to two at a narrow pair (:func:`dw_blocks_per_sm`); strip
+    width by :func:`dw_strip_width`; rows per block chosen so that the
+    launch on ``card`` ends soonest: full waves times one block's steps
     plus two (its first step, which no MMA overlaps, and its partial's sum
     and store), which gives about one wave and so a workspace of about one
-    partial an SM."""
-    th, tw = DW_TC_ROWS, dw_strip_width(w, dilation, card)
+    partial a block slot."""
+    th, tw = DW_TC_ROWS, dw_strip_width(w, dilation, card, cin, cout)
     ring = 2 * th + 2 * dilation
-    smem = dw_tc_smem(tw, dilation, ring)
+    smem = dw_tc_smem(tw, dilation, ring, cin, cout)
     tiles, strips = -(-(n * d * h) // th), -(-w // tw)
-    steps = _pick_steps(tiles, strips * kd, card.sms, lambda s: s + 2)
+    slots = card.sms * dw_blocks_per_sm(smem, card, cin, cout)
+    steps = _pick_steps(tiles, strips * kd, slots, lambda s: s + 2)
     grid = (strips, -(-tiles // steps), kd)
     return DwPlan(kd, (n, d, h, w), dilation, th, tw, ring, steps, grid,
-                  smem, grid[0] * grid[1] * grid[2] * DW_TC_OUT)
+                  smem, grid[0] * grid[1] * grid[2] * 9 * cin * cout)
 
 
 def _acc_dtype(t: torch.Tensor) -> torch.dtype:
@@ -162,9 +187,9 @@ def dw_reduce3d_plain(x: torch.Tensor, g: torch.Tensor):
 
 
 def _dw_launch(x, g, kd: int, dilation: int):
-    """Launch csrc/dw_reduce.cu on (N, D, H, W, C) views of x and g: bf16
-    ``TC_CHANNELS`` on the tensor cores (``rsm_dw_reduce_tc``), every other
-    call on the CUDA cores (``rsm_dw_reduce``)."""
+    """Launch csrc/dw_reduce.cu on (N, D, H, W, C) views of x and g: bf16 on
+    the tensor cores (``rsm_dw_reduce_tc``), float32 on the CUDA cores
+    (``rsm_dw_reduce``)."""
     n, d, h, w, cin = x.shape
     cout = g.shape[-1]
     if (cin, cout) not in SUPPORTED_CHANNELS[kd]:
@@ -181,13 +206,14 @@ def _dw_launch(x, g, kd: int, dilation: int):
     _build.require(g, "g", shape=(n, d, h, w, cout), dtype=x.dtype, device=dev)
     lib = _build.library()
     out = torch.empty((kd, 3, 3, cin, cout), dtype=torch.float32, device=dev)
-    if x.dtype == torch.bfloat16 and (cin, cout) == TC_CHANNELS:
-        plan = dw_tc_plan(n, d, h, w, kd, dilation, card_of(dev.index))
+    if x.dtype == torch.bfloat16:
+        plan = dw_tc_plan(n, d, h, w, kd, dilation, card_of(dev.index), cin,
+                          cout)
         work = torch.empty(plan.work_floats, dtype=torch.float32, device=dev)
         rc = lib.rsm_dw_reduce_tc(
             x.data_ptr(), g.data_ptr(), work.data_ptr(), out.data_ptr(),
-            plan.work_floats, n, d, h, w, kd, dilation, plan.th, plan.tw,
-            plan.ring, plan.steps, *plan.grid, plan.smem, dev.index,
+            plan.work_floats, n, d, h, w, cin, cout, kd, dilation, plan.th,
+            plan.tw, plan.ring, plan.steps, *plan.grid, plan.smem, dev.index,
             _build.stream_of(x))
         _build.check(rc, KERNEL_NAME)
         _build.LAUNCHES[KERNEL_NAME] += 1

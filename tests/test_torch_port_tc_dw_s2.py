@@ -399,6 +399,27 @@ def test_s2_tc_emulation_matches_plain(shape):
     ("rsm::tc::conv_s2_tc_kernel<(int)3>", "fused_conv3x3_s2 32->32"),
     ("void (anonymous namespace)::dw_sum_kernel(float const*, float*, int, "
      "int)", "dw_reduce partial sums"),
+    ("void rsm::tc::dw_tc_kernel<1, 32, 32>(__nv_bfloat16 const*, ...)",
+     "dw_reduce 32->32"),
+    ("void rsm::tc::dw_tc_kernel<1, 4, 32>(__nv_bfloat16 const*, ...)",
+     "dw_reduce 4->32"),
+    ("rsm::tc::dw_tc_kernel<(int)1, (int)7, (int)32>", "dw_reduce 7->32"),
+    ("void rsm::tc::dw_tc_kernel<1, 32, 1>(__nv_bfloat16 const*, ...)",
+     "dw_reduce 32->1"),
+    ("void rsm::tc::dw_tc_kernel<3, 32, 1>(__nv_bfloat16 const*, ...)",
+     "dw_reduce 3D 32->1"),
+    ("void rsm::tc::conv_nin_tc_kernel<4>(__nv_bfloat16 const*, ...)",
+     "fused_conv3x3 4->32"),
+    ("rsm::tc::conv_nin_tc_kernel<(int)7>", "fused_conv3x3 7->32"),
+    ("void rsm::tc::conv_nin_tc_kernel<3>(__nv_bfloat16 const*, ...)",
+     "fused_conv3x3 3->32"),
+    ("void rsm::tc::conv_nin_tc_kernel<1>(__nv_bfloat16 const*, ...)",
+     "fused_conv3x3 1->32"),
+    ("void rsm::tc::conv_nout_tc_kernel<1>(__nv_bfloat16 const*, ...)",
+     "fused_conv3x3 32->1"),
+    ("rsm::tc::conv_nout_tc_kernel<(int)4>", "fused_conv3x3 32->4"),
+    ("void rsm::tc::conv_nout_tc_kernel<7>(__nv_bfloat16 const*, ...)",
+     "fused_conv3x3 32->7"),
 ])
 def test_frame_profile_groups_the_new_kernels(name, group):
     assert kernel_group(name) == group
@@ -481,7 +502,10 @@ def test_bf16_s2_on_cpu_runs_plain_and_matches_jax(taps, shape):
 @pytest.mark.parametrize("header,macro", [
     ("dw_tc.cuh", "RSM_TC_CUT_A"), ("dw_tc.cuh", "RSM_TC_CUT_MMA"),
     ("conv_s2_tc.cuh", "RSM_TC_CUT_A"), ("conv_s2_tc.cuh", "RSM_TC_CUT_MMA"),
-    ("conv_s2_tc.cuh", "RSM_TC_CUT_STORE")])
+    ("conv_s2_tc.cuh", "RSM_TC_CUT_STORE"),
+    ("conv_narrow_tc.cuh", "RSM_TC_CUT_A"),
+    ("conv_narrow_tc.cuh", "RSM_TC_CUT_MMA"),
+    ("conv_narrow_tc.cuh", "RSM_TC_CUT_STORE")])
 def test_cut_variants_reach_the_new_kernels(header, macro):
     """``tools/tc_compare.py variants`` defines its cut macros at the top of
     ``conv_tc.cuh``; the new kernels' headers include it first and guard
