@@ -16,7 +16,7 @@
 // byte, above the card's ~295 FLOP/byte ridge: it is bound by operations
 // (>= 19 us on bf16 tensor cores).
 //
-// Two designs, chosen by dtype and channel pair:
+// Three designs, chosen by dtype and channel pair:
 //   * bf16 32 -> 32 (4 of the 5 launches of a frame): rsm_conv3d_tc, the
 //     tensor-core implicit GEMM of conv_tc.cuh (mma.sync m16n8k16, K = 864).
 //     A block owns a 16 x 32 (h, w) tile and walks along D, keeping a ring of
@@ -34,27 +34,30 @@
 //     out in wgmma's core-matrix order, 8 wgmma m64n32k16 a tap per
 //     warpgroup) measured ~10% slower; tools/conv_tc_wgmma.cuh keeps it for
 //     that comparison.
-//   * float32, and the 32 -> 1 head and 1 -> 32 dx: the CUDA-core template
-//     of conv_common.cuh (float32 FMAs, weights staged a depth tap at a time,
-//     36 KB, so no launch needs the dynamic shared-memory opt-in).
-#include <type_traits>
-
+//   * bf16 32 -> 1 (the head, the fifth launch of a frame) and 1 -> 32 (its
+//     dx in training): rsm_conv3d_tc too, the kernels of
+//     conv3d_narrow_tc.cuh over the same tile walk and slab ring (32 -> 1:
+//     N = (kx, co), one A fragment serving three taps; 1 -> 32: 2-byte
+//     pixels, K = the 27 taps padded to 32).
+//   * float32: the CUDA-core template of conv_common.cuh (float32 FMAs,
+//     weights staged a depth tap at a time, 36 KB, so no launch needs the
+//     dynamic shared-memory opt-in), so that its checks hold at ~3e-6.
+#include "conv3d_narrow_tc.cuh"
 #include "conv_common.cuh"
 #include "conv_tc.cuh"
 
 namespace {
 
-template <typename T>
+// float32 only: every bf16 conv runs on the tensor cores (rsm_conv3d_tc)
 cudaError_t dispatch(const void* x, const void* w, const void* scale,
                      const void* bias, void* out, int n, int d, int h, int wd,
                      int cin, int cout, int act, cudaStream_t st) {
 #define RSM_CASE(CI, CO)                                                     \
   if (cin == CI && cout == CO)                                               \
-    return rsm::launch_conv<T, CI, CO, 1, 3>(x, w, scale, bias, nullptr, out, \
-                                             n, d, h, wd, h, wd, 1, 1, act,   \
-                                             0.f, st);
-  // bf16 32 -> 32 runs on the tensor cores (rsm_conv3d_tc)
-  if constexpr (std::is_same_v<T, float>) RSM_CASE(32, 32)
+    return rsm::launch_conv<float, CI, CO, 1, 3>(x, w, scale, bias, nullptr, \
+                                                 out, n, d, h, wd, h, wd, 1, \
+                                                 1, act, 0.f, st);
+  RSM_CASE(32, 32)
   RSM_CASE(32, 1)
   RSM_CASE(1, 32)  // dx of the 32 -> 1 head (training)
 #undef RSM_CASE
@@ -69,27 +72,28 @@ extern "C" int rsm_conv3d(const void* x, const void* w, const void* scale,
                           int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == rsm::kBFloat16)
-    return dispatch<__nv_bfloat16>(x, w, scale, bias, out, n, d, h, wd, cin,
-                                   cout, act, st);
-  if (dtype == rsm::kFloat32)
-    return dispatch<float>(x, w, scale, bias, out, n, d, h, wd, cin, cout, act,
-                           st);
-  return cudaErrorInvalidValue;
+  if (dtype != rsm::kFloat32) return cudaErrorInvalidValue;  // bf16: _tc
+  return dispatch(x, w, scale, bias, out, n, d, h, wd, cin, cout, act,
+                  static_cast<cudaStream_t>(stream));
 }
 
-// bf16 32 -> 32 on the tensor cores, by the plan of kernels/cost_filter3d.py
+// bf16 on the tensor cores, cin -> cout 32 -> 32 (conv_tc.cuh), 32 -> 1 or
+// 1 -> 32 (conv3d_narrow_tc.cuh), by the plan of kernels/cost_filter3d.py
 // (conv3d_tc_plan): tile th x tw of (h, w), a ring of 4 slabs, `steps`
 // depths per block, grid (gx, gy, gz), `smem` dynamic shared bytes.
 extern "C" int rsm_conv3d_tc(const void* x, const void* w, const void* scale,
                              const void* bias, void* out, int n, int d, int h,
-                             int wd, int th, int tw, int ring, int steps,
-                             int gx, int gy, int gz, int smem, int act,
-                             int device, void* stream) {
+                             int wd, int cin, int cout, int th, int tw,
+                             int ring, int steps, int gx, int gy, int gz,
+                             int smem, int act, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  return rsm::tc::launch_tc<3>(x, w, scale, bias, nullptr, out, n, d, h, wd,
-                               1, th, tw, ring, steps, gx, gy, gz, smem, act,
-                               0.f, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cin == 32 && cout == 32)
+    return rsm::tc::launch_tc<3>(x, w, scale, bias, nullptr, out, n, d, h, wd,
+                                 1, th, tw, ring, steps, gx, gy, gz, smem, act,
+                                 0.f, st);
+  return rsm::tc::launch_conv3d_narrow_tc(x, w, scale, bias, out, n, d, h, wd,
+                                          cin, cout, th, tw, ring, steps, gx,
+                                          gy, gz, smem, act, st);
 }

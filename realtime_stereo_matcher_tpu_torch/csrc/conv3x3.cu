@@ -14,7 +14,8 @@
 //       C_in <= 32 to 32; here each pair is an instantiation.
 //   K2  realtime_stereo_matcher_tpu/kernels/conv3x3.py  fused_conv3x3_s2_flat
 //       (body _build_s2_kernel, launcher _conv_s2_call): the stride-2 3x3
-//       conv that halves H and W.
+//       conv that halves H and W (32 -> 32, and 3 -> 32 at the encoders'
+//       first stage).
 //   K2-4x4  realtime_stereo_matcher_tpu/kernels/conv3x3.py
 //       fused_conv4x4_s2_flat (the same launcher with the 4x4 taps): the v3
 //       U-Net's 4x4 stride-2 downsampler with TF-SAME padding (output pixel
@@ -31,7 +32,7 @@
 // bf16, does 7.55 GFLOP on 73.7 MB (22 us on memory, 102 FLOP per byte); the
 // 3x3 at 360x640 -> 180x320 1.06 GFLOP on 18.4 MB (5.5 us on memory).
 //
-// Four designs, chosen by stride, dtype and channel pair:
+// Five designs, chosen by stride, dtype and channel pair:
 //   * bf16 32 -> 32, stride 1 (50 of the 56 K1 launches of a 720p frame):
 //     rsm_conv3x3_tc, the tensor-core implicit GEMM of conv_tc.cuh.  A block
 //     owns a 64-column strip and walks down it 8 output rows a step, keeping
@@ -57,16 +58,19 @@
 //     de-interleaved by column parity so that a stride-2 A fragment reads 16
 //     consecutive staged pixels without bank conflicts, and a ring of
 //     4 * 8 + KT - 2 input rows for 8 x 32 output tiles.
-//   * float32 (every pair), and K2's bf16 3 -> 32 first encoder stage: the
-//     CUDA-core template of conv_common.cuh, float32 FMAs (67 TFLOP/s
-//     peak), bound by those operations.  float32 stays there so that its
-//     checks hold at ~3e-6 (TF32 tensor cores would not).
+//   * bf16 3 -> 32, stride 2 (K2: the other 2 of the 6 stride-2 launches of
+//     a v1 or v2 frame, the encoders' stem): rsm_conv_s2_tc too, the
+//     narrow-input kernel of conv_s2_tc.cuh (conv_s2_nin_tc_kernel): the
+//     column-parity planes with the input pixels staged through registers,
+//     padded to 8 channels, taps packed two to a k16 step.
+//   * float32 (every pair): the CUDA-core template of conv_common.cuh,
+//     float32 FMAs (67 TFLOP/s peak), bound by those operations.  float32
+//     stays there so that its checks hold at ~3e-6 (TF32 tensor cores would
+//     not).  Every bf16 launch runs on the tensor cores.
 
 // C interface (bound with ctypes by kernels/_build.py): pointers and the
 // stream are void*, the rest int; the return value is the cudaError_t of the
 // launch (cudaErrorInvalidValue for a shape or plan this file does not take).
-#include <type_traits>
-
 #include "conv_common.cuh"
 #include "conv_narrow_tc.cuh"
 #include "conv_s2_tc.cuh"
@@ -76,7 +80,9 @@ namespace {
 
 using rsm::launch_conv;
 
-template <typename T, int S>
+// float32 only: every bf16 conv runs on the tensor cores (rsm_conv3x3_tc,
+// rsm_conv_s2_tc)
+template <int S>
 cudaError_t dispatch(const void* x, const void* w, const void* scale,
                      const void* bias, const void* res, void* out, int n,
                      int h, int wd, int cin, int cout, int ho, int wo,
@@ -84,11 +90,10 @@ cudaError_t dispatch(const void* x, const void* w, const void* scale,
   const int pad = dil;  // stride 1: SAME; stride 2: dil == 1, torch padding 1
 #define RSM_CASE(CI, CO)                                                   \
   if (cin == CI && cout == CO)                                             \
-    return launch_conv<T, CI, CO, S, 1>(x, w, scale, bias, res, out, n, 1, \
-                                        h, wd, ho, wo, dil, pad, act,      \
-                                        alpha, st);
+    return launch_conv<float, CI, CO, S, 1>(x, w, scale, bias, res, out, n, \
+                                            1, h, wd, ho, wo, dil, pad,    \
+                                            act, alpha, st);
   if constexpr (S == 1) {
-    // float32 only: bf16 runs on the tensor cores (rsm_conv3x3_tc)
     RSM_CASE(32, 32)
     RSM_CASE(4, 32)
     RSM_CASE(32, 1)
@@ -98,8 +103,7 @@ cudaError_t dispatch(const void* x, const void* w, const void* scale,
     RSM_CASE(7, 32)  // the v2 refine entry
     RSM_CASE(32, 7)  // dx of the v2 refine entry (training)
   } else {
-    // bf16 32 -> 32 runs on the tensor cores (rsm_conv_s2_tc)
-    if constexpr (std::is_same_v<T, float>) RSM_CASE(32, 32)
+    RSM_CASE(32, 32)
     RSM_CASE(3, 32)
   }
 #undef RSM_CASE
@@ -119,17 +123,12 @@ int rsm_conv3x3(const void* x, const void* w, const void* scale,
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (stride != 1 && !(stride == 2 && dil == 1)) return cudaErrorInvalidValue;
-  if (dtype == rsm::kBFloat16) {  // stride 1 runs rsm_conv3x3_tc
-    if (stride != 2) return cudaErrorInvalidValue;
-    return dispatch<__nv_bfloat16, 2>(x, w, scale, bias, res, out, n, h, wd,
-                                      cin, cout, ho, wo, dil, act, alpha, st);
-  }
-  if (dtype == rsm::kFloat32) {
+  if (dtype == rsm::kFloat32) {  // bf16 runs on the tensor cores
     return stride == 1
-               ? dispatch<float, 1>(x, w, scale, bias, res, out, n, h, wd,
-                                    cin, cout, ho, wo, dil, act, alpha, st)
-               : dispatch<float, 2>(x, w, scale, bias, res, out, n, h, wd,
-                                    cin, cout, ho, wo, dil, act, alpha, st);
+               ? dispatch<1>(x, w, scale, bias, res, out, n, h, wd, cin,
+                             cout, ho, wo, dil, act, alpha, st)
+               : dispatch<2>(x, w, scale, bias, res, out, n, h, wd, cin,
+                             cout, ho, wo, dil, act, alpha, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -185,26 +184,26 @@ int rsm_conv4x4_s2(const void* x, const void* w, const void* scale,
   return cudaErrorInvalidValue;
 }
 
-// bf16 32 -> 32 stride 2 on the tensor cores, `taps` (3 or 4) a side, by
-// the plan of kernels/conv3x3.py (conv_s2_tc_plan): tile th x tw output
-// pixels, `ring` input rows, `steps` row tiles per block, grid (gx, gy, gz),
-// `smem` dynamic shared bytes.
+// bf16 stride 2 on the tensor cores, `taps` (3 or 4) a side, cin -> 32
+// (cin 32, or 3 with 3 taps), by the plan of kernels/conv3x3.py
+// (conv_s2_tc_plan): tile th x tw output pixels, `ring` input rows, `steps`
+// row tiles per block, grid (gx, gy, gz), `smem` dynamic shared bytes.
 int rsm_conv_s2_tc(const void* x, const void* w, const void* scale,
                    const void* bias, void* out, int n, int h, int wd, int ho,
-                   int wo, int taps, int th, int tw, int ring, int steps,
-                   int gx, int gy, int gz, int smem, int act, float alpha,
-                   int device, void* stream) {
+                   int wo, int cin, int taps, int th, int tw, int ring,
+                   int steps, int gx, int gy, int gz, int smem, int act,
+                   float alpha, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (taps == 4)
     return rsm::tc::launch_s2_tc<4>(x, w, scale, bias, out, n, h, wd, ho, wo,
-                                    th, tw, ring, steps, gx, gy, gz, smem,
-                                    act, alpha, st);
+                                    cin, th, tw, ring, steps, gx, gy, gz,
+                                    smem, act, alpha, st);
   if (taps == 3)
     return rsm::tc::launch_s2_tc<3>(x, w, scale, bias, out, n, h, wd, ho, wo,
-                                    th, tw, ring, steps, gx, gy, gz, smem,
-                                    act, alpha, st);
+                                    cin, th, tw, ring, steps, gx, gy, gz,
+                                    smem, act, alpha, st);
   return cudaErrorInvalidValue;
 }
 

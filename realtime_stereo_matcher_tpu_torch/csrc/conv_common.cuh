@@ -1,9 +1,8 @@
 // Direct convolution with a fused epilogue on the CUDA cores, shared by the
 // 3x3 kernels (conv3x3.cu: stride 1 and stride 2), the 4x4 stride-2 TF-SAME
-// kernel (conv3x3.cu) and the 3x3x3 kernel (conv3d.cu) for float32, and in
-// bf16 for the stride-2 3 -> 32 conv and the 3x3x3 conv's narrow pairs.  The
-// other bf16 convs run on the tensor cores instead (conv_tc.cuh,
-// conv_narrow_tc.cuh, conv_s2_tc.cuh).
+// kernel (conv3x3.cu) and the 3x3x3 kernel (conv3d.cu), all in float32.
+// Every bf16 conv runs on the tensor cores instead (conv_tc.cuh,
+// conv_narrow_tc.cuh, conv_s2_tc.cuh, conv3d_narrow_tc.cuh).
 //
 // Layouts are channels-last and contiguous:
 //   x   (N, D, H, W, CI)        T    (D = 1 for a 2D conv)
@@ -11,7 +10,8 @@
 //                                     K = 3, or 4 for the 4x4 conv)
 //   out (N, D, Ho, Wo, CO)      T
 //   res (N, D, Ho, Wo, CO)      T    optional residual
-// T is float or __nv_bfloat16; products and sums are float32.
+// T is float (the conv entry points instantiate no other); products and
+// sums are float32.
 //
 // Epilogue, in the order of the TPU kernel (kernels/conv3x3.py:276-291 of the
 // JAX package): y = acc * scale + bias; ReLU, leaky ReLU or none; cast to T;

@@ -1,5 +1,5 @@
-// Tensor-core stride-2 convolution of the bf16 32 -> 32 downsamplers
-// (conv3x3.cu's entry point rsm_conv_s2_tc), KT x KT taps, KT = 4 or 3:
+// Tensor-core stride-2 convolutions of bf16 (conv3x3.cu's entry point
+// rsm_conv_s2_tc), KT x KT taps, KT = 4 or 3:
 //
 //   out[n, oy, ox, co] = act(scale[co] * sum_{ky,kx,ci}
 //                         x[n, 2 oy + ky - 1, 2 ox + kx - 1, ci] w[ky, kx, ci, co]
@@ -8,16 +8,17 @@
 // Out-of-range input reads zero; Ho = ceil(H / 2), Wo = ceil(W / 2).  With
 // KT = 4 that is the v3 U-Net's 4x4 TF-SAME conv (pad_lo 1; pad_hi 1 for an
 // even size, 2 for an odd one); with KT = 3 the 3x3 conv with torch padding
-// 1 of the v1 / v2 encoders.  No residual.
+// 1 of the v1 / v2 encoders, 32 -> 32, and 3 -> 32 at their first stage.
+// No residual.
 //
-// Replaces, at bf16 32 -> 32, the Pallas TPU kernel K2 of the JAX package
+// Replaces the Pallas TPU kernel K2 of the JAX package
 // (realtime_stereo_matcher_tpu/kernels/conv3x3.py fused_conv3x3_s2_flat,
 // body _build_s2_kernel), which fused_conv4x4_s2_flat also reaches.
 //
-// The GEMM is the forward conv's, as in conv_tc.cuh: M = output pixels,
-// N = 32 output channels, K = KT^2 x 32 (512 or 288), mma.sync m16n8k16 with
-// float32 accumulators; the weights (32 KB or 18 KB) stay in shared memory
-// for the block's life.
+// 32 -> 32 (conv_s2_tc_kernel).  The GEMM is the forward conv's, as in
+// conv_tc.cuh: M = output pixels, N = 32 output channels, K = KT^2 x 32 (512
+// or 288), mma.sync m16n8k16 with float32 accumulators; the weights (32 KB
+// or 18 KB) stay in shared memory for the block's life.
 //
 // Stride 2 puts the 16 input pixels of one A fragment (16 consecutive output
 // columns at one tap) 128 bytes apart, where they fall in only 4 of the 8
@@ -37,8 +38,26 @@
 // block an SM.  Outputs are staged through 1 KB a warp and stored as 16-byte
 // vectors, as in conv_tc.cuh.
 //
+// 3 -> 32 (conv_s2_nin_tc_kernel, KT = 3: the encoders' stem, 720 x 1280 ->
+// 360 x 640 at 720p).  Bound by bytes: 5.5 MB of 6-byte input pixels and
+// 14.7 MB of 64-byte output pixels, 0.006 ms at 3.35 TB/s.  The same strip
+// walk, 8 output rows a step, with the input pixels staged through
+// registers (the next step's 16 rows fetched before this step's MMAs and
+// stored after them) as 8-byte chunks, the channels zero-padded to 4, in
+// column order: staged pixel p of a row is input column 2 ox0 - 1 + p.  At
+// stride 2 the taps kx = 0 and 1 of output column ox0 + i are then the two
+// pixels of the 16-byte row at 2 i, and kx = 2 the first pixel of the row
+// at 2 i + 2: one ldmatrix row each, 8 consecutive output columns 128
+// contiguous bytes (conflict-free without a swizzle or parity planes).  So
+// one k16 step holds a whole kernel row (k = kx x 4 + ci: lanes 0-15 address
+// kx 0-1, lanes 16-31 kx 2), K = 3 x 16 = 48; the k 12-15 quarter (the
+// next column's pixel) is zeroed in the A registers.  Per 16 output pixels:
+// 3 ldmatrix and 12 MMAs (against 5 and 20 with 8 channels a pixel and
+// the taps two to a step, PERF.md).  B stays in registers for the block's
+// life.  The ring is 17 KB: two blocks an SM.
+//
 // RSM_TC_CUT_A, RSM_TC_CUT_MMA and RSM_TC_CUT_STORE (conv_tc.cuh) cut the A
-// fragment loads, the MMAs or the output stores out of this kernel too; no
+// fragment loads, the MMAs or the output stores out of these kernels too; no
 // build of the package defines them.
 #pragma once
 
@@ -58,6 +77,19 @@ __host__ __device__ constexpr int s2_ring() {
 template <int KT>
 __host__ __device__ constexpr int s2_smem_bytes() {
   return KT * KT * kC * kPixBytes + s2_ring<KT>() * kS2Unit * kPixBytes +
+         kStageBytes;
+}
+
+// 3 -> 32: 48 weight rows (3 row taps x (3 column taps + a zero one) x 4
+// input channels) of 32 output channels; a ring of s2_ring<3>() rows of 66
+// staged 8-byte pixels
+constexpr int kS2NinK = 48;
+constexpr int kS2NinCols = 2 * kS2TW + 2;
+constexpr int kS2NinPix = 8;
+constexpr int kS2NinPre = 5;  // staged pixels a thread fetches ahead: 16 x 66
+
+__host__ __device__ constexpr int s2_nin_smem_bytes() {
+  return kS2NinK * kPixBytes + s2_ring<3>() * kS2NinCols * kS2NinPix +
          kStageBytes;
 }
 
@@ -218,29 +250,184 @@ conv_s2_tc_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-// Launches one plan (kernels/conv3x3.py conv_s2_tc_plan).  Returns
-// cudaErrorInvalidValue when the plan does not match this kernel (tile
+// grid: x = strips of kS2TW output columns, y = chunks of `steps` steps of
+// kS2TH output rows, z = N.  3x3 taps, C_in = CI (<= 4) -> 32.
+template <int CI>
+__global__ void __launch_bounds__(kThreadsTc, 2)
+conv_s2_nin_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                      const __nv_bfloat16* __restrict__ w,
+                      const float* __restrict__ scale,
+                      const float* __restrict__ bias,
+                      __nv_bfloat16* __restrict__ out, int H, int W, int Ho,
+                      int Wo, int steps, int act, float alpha) {
+  static_assert(CI <= 4, "a staged pixel holds 4 channels");
+  constexpr int TH = kS2TH, COLS = kS2NinCols, RING = s2_ring<3>();
+  constexpr int kWords = Narrow<CI>::kWords;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t w_s = (uint32_t)__cvta_generic_to_shared(smem);
+  const uint32_t ring_s = w_s + kS2NinK * kPixBytes;
+  unsigned char* stage = smem + kS2NinK * kPixBytes + RING * COLS * kS2NinPix;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = blockIdx.z;
+  const int ox0 = blockIdx.x * kS2TW;
+  const int oy0 = blockIdx.y * steps * TH;  // first output row
+  const int u0 = 2 * oy0 - 1;               // first input row of the ring
+  const int c0 = 2 * ox0 - 1;               // input column of staged p = 0
+  const int n_steps = min(steps, (Ho - oy0 + TH - 1) / TH);
+
+  // staged pixel i of the rows from lo: input (lo + i / COLS, c0 + i % COLS)
+  // and its ring slot
+  auto src_of = [&](int lo, int i, bool& ok) {
+    const int u = lo + i / COLS, ix = c0 + i % COLS;
+    ok = u >= 0 && u < H && ix >= 0 && ix < W;
+    return x + (((size_t)n * H + (ok ? u : 0)) * W + (ok ? ix : 0)) * CI;
+  };
+  auto commit = [&](int lo, int i, const uint32_t* v) {
+    const uint32_t dst =
+        ring_s + (uint32_t)((((lo + i / COLS) - u0) % RING) * COLS + i % COLS) *
+                     kS2NinPix;
+    asm volatile("st.shared.v2.b32 [%0], {%1,%2};\n" ::"r"(dst), "r"(v[0]),
+                 "r"(kWords > 1 ? v[kWords - 1] : 0u));
+  };
+  // the first step's 2 TH + 1 rows, fetched and stored at once
+  for (int i = tid; i < (2 * TH + 1) * COLS; i += kThreadsTc) {
+    bool ok;
+    const __nv_bfloat16* src = src_of(u0, i, ok);
+    uint32_t v[kWords];
+    narrow_fetch<CI>(src, ok, v);
+    commit(u0, i, v);
+  }
+  // weights: row q = ky * 16 + kx * 4 + ci holds 32 output channels (zero
+  // for kx = 3 and ci >= CI), swizzled as conv_tc.cuh's
+  for (int i = tid; i < kS2NinK * 4; i += kThreadsTc) {
+    const int q = i >> 2, j = i & 3, ky = q >> 4, kx = (q >> 2) & 3, ci = q & 3;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (kx < 3 && ci < CI)
+      v = *reinterpret_cast<const uint4*>(
+          w + ((size_t)(ky * 3 + kx) * CI + ci) * kC + j * 8);
+    st_shared16(w_s + swz(q, j), v);
+  }
+  __syncthreads();
+
+  // B fragments of the three k16 steps (row taps) and four n-tiles, for the
+  // block's life
+  uint32_t b[3][4][2];
+  {
+    const int b_row = (lane & 7) + ((lane >> 3) & 1) * 8;  // k within 16
+    const int b_chunk = lane >> 4;                         // n-tile of a pair
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks) {
+      uint32_t r[4];
+      ldsm_x4_t(w_s + swz(ks * 16 + b_row, b_chunk), r);  // n-tiles 0, 1
+      b[ks][0][0] = r[0]; b[ks][0][1] = r[1];
+      b[ks][1][0] = r[2]; b[ks][1][1] = r[3];
+      ldsm_x4_t(w_s + swz(ks * 16 + b_row, 2 + b_chunk), r);  // 2, 3
+      b[ks][2][0] = r[0]; b[ks][2][1] = r[1];
+      b[ks][3][0] = r[2]; b[ks][3][1] = r[3];
+    }
+  }
+  // A: this lane addresses output column a_pix of an M-tile at the staged
+  // pixels 2 a_pix (kx 0, 1) or 2 a_pix + 2 (kx 2 and the next column's,
+  // whose k 12-15 the lanes with (lane & 3) >= 2 hold and zero)
+  const int a_pix = 2 * (lane & 15) + 2 * (lane >> 4);
+  const bool a_zero_hi = (lane & 3) >= 2;
+  unsigned char* st = stage + warp * 16 * kPixBytes;
+
+  for (int s = 0; s < n_steps; ++s) {
+    // the 2 TH rows step s + 1 brings: fetched now, stored after the MMAs
+    const int lo_next = u0 + 2 * TH * (s + 1) + 1;
+    uint32_t pre[kS2NinPre][kWords];
+    if (s + 1 < n_steps) {
+#pragma unroll
+      for (int k = 0; k < kS2NinPre; ++k) {
+        const int i = tid + k * kThreadsTc;
+        bool ok = false;
+        const __nv_bfloat16* src = i < 2 * TH * COLS ? src_of(lo_next, i, ok)
+                                                     : x;
+        narrow_fetch<CI>(src, ok, pre[k]);
+      }
+    }
+    const int oy = oy0 + s * TH + warp;
+    if (oy < Ho) {  // the same for the whole warp
+      int row[3];   // staged pixel 0 of input row 2 oy - 1 + ky
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+        row[ky] = ((2 * oy - 1 + ky - u0) % RING) * COLS + a_pix;
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        float acc[16];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky) {
+          uint32_t a[4];
+#ifndef RSM_TC_CUT_A
+          ldsm_x4(ring_s + (uint32_t)(row[ky] + 32 * m) * kS2NinPix, a);
+          if (a_zero_hi) a[2] = a[3] = 0u;
+#else
+          a[0] = a[1] = a[2] = a[3] = 0u;
+#endif
+#ifndef RSM_TC_CUT_MMA
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) mma_bf16(&acc[nt * 4], a, b[ky][nt]);
+#endif
+        }
+        const int ox = ox0 + m * 16;
+        store_tile16(acc, st, lane, scale, bias, act, alpha, nullptr, out,
+                     ((size_t)n * Ho + oy) * Wo + ox, min(16, Wo - ox));
+      }
+    }
+    if (s + 1 < n_steps) {
+#pragma unroll
+      for (int k = 0; k < kS2NinPre; ++k) {
+        const int i = tid + k * kThreadsTc;
+        if (i < 2 * TH * COLS) commit(lo_next, i, pre[k]);
+      }
+    }
+    __syncthreads();  // step s + 1's rows are in; step s's slots may refill
+  }
+}
+
+// Launches one plan (kernels/conv3x3.py conv_s2_tc_plan): 32 -> 32 with KT
+// taps a side, or (KT = 3) cin -> 32 with cin = 3.  Returns
+// cudaErrorInvalidValue when the plan does not match the kernel (tile
 // shape, ring size, shared-memory bytes, grid, output size).
 template <int KT>
 cudaError_t launch_s2_tc(const void* x, const void* w, const void* scale,
                          const void* bias, void* out, int n, int h, int wd,
-                         int ho, int wo, int th, int tw, int ring, int steps,
-                         int gx, int gy, int gz, int smem, int act,
+                         int ho, int wo, int cin, int th, int tw, int ring,
+                         int steps, int gx, int gy, int gz, int smem, int act,
                          float alpha, cudaStream_t st) {
+  const bool narrow = KT == 3 && cin == 3;
   const int tiles_h = (ho + kS2TH - 1) / kS2TH;
-  if (th != kS2TH || tw != kS2TW || ring != s2_ring<KT>() || steps < 1 ||
-      smem != s2_smem_bytes<KT>() || ho != (h + 1) / 2 || wo != (wd + 1) / 2 ||
+  if ((cin != kC && !narrow) || th != kS2TH || tw != kS2TW ||
+      ring != s2_ring<KT>() || steps < 1 ||
+      smem != (narrow ? s2_nin_smem_bytes() : s2_smem_bytes<KT>()) ||
+      ho != (h + 1) / 2 || wo != (wd + 1) / 2 ||
       gx != (wo + kS2TW - 1) / kS2TW || gy != (tiles_h + steps - 1) / steps ||
       gy > 65535 || gz != n)
     return cudaErrorInvalidValue;
-  static int opted[64] = {};  // per device, for this instantiation
-  const cudaError_t err = opt_in_smem(conv_s2_tc_kernel<KT>, smem, opted);
-  if (err != cudaSuccess) return err;
-  conv_s2_tc_kernel<KT><<<dim3(gx, gy, gz), kThreadsTc, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(out), h,
-      wd, ho, wo, steps, act, alpha);
+  const dim3 grid(gx, gy, gz);
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  const auto* sf = static_cast<const float*>(scale);
+  const auto* bf = static_cast<const float*>(bias);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  cudaError_t err;
+  if (narrow) {
+    static int opted[64] = {};  // per device, for this instantiation
+    err = opt_in_smem(conv_s2_nin_tc_kernel<3>, smem, opted);
+    if (err != cudaSuccess) return err;
+    conv_s2_nin_tc_kernel<3><<<grid, kThreadsTc, smem, st>>>(
+        xb, wb, sf, bf, ob, h, wd, ho, wo, steps, act, alpha);
+  } else {
+    static int opted[64] = {};
+    err = opt_in_smem(conv_s2_tc_kernel<KT>, smem, opted);
+    if (err != cudaSuccess) return err;
+    conv_s2_tc_kernel<KT><<<grid, kThreadsTc, smem, st>>>(
+        xb, wb, sf, bf, ob, h, wd, ho, wo, steps, act, alpha);
+  }
   return cudaGetLastError();
 }
 

@@ -59,6 +59,12 @@ _S2_TC = re.compile(rf"conv_s2_tc_kernel<{_INT}")
 # stride-1 narrow pairs of K1 (CI -> 32, 32 -> CO) on the tensor cores
 _NIN_TC = re.compile(rf"conv_nin_tc_kernel<{_INT}")
 _NOUT_TC = re.compile(rf"conv_nout_tc_kernel<{_INT}")
+# rsm::tc::conv_s2_nin_tc_kernel<CI> (K2's CI -> 32 stem) and
+# rsm::tc::conv3d_nout_tc_kernel / conv3d_nin_tc_kernel (K3's 32 -> 1 head
+# and its 1 -> 32 dx): the bf16 narrow pairs of K2 and K3 on the tensor
+# cores
+_S2_NIN_TC = re.compile(rf"conv_s2_nin_tc_kernel<{_INT}")
+_K3_NARROW_TC = re.compile(r"conv3d_n(in|out)_tc_kernel\b")
 
 
 def kernel_group(name: str) -> str:
@@ -68,6 +74,12 @@ def kernel_group(name: str) -> str:
     if m:
         kernel = "fused_conv3d" if m.group(1) == "3" else "fused_conv3x3"
         return f"{kernel} 32->32"
+    m = _S2_NIN_TC.search(name)
+    if m:
+        return f"fused_conv3x3_s2 {m.group(1)}->32"
+    m = _K3_NARROW_TC.search(name)
+    if m:
+        return "fused_conv3d " + ("1->32" if m.group(1) == "in" else "32->1")
     m = _S2_TC.search(name)
     if m:
         kernel = "fused_conv4x4_s2" if m.group(1) == "4" else "fused_conv3x3_s2"
@@ -103,7 +115,7 @@ def kernel_route(name: str) -> str | None:
     """Where a port kernel runs: "tensor cores" or "cuda cores"; None for
     anything else (plain PyTorch, the partial sums of K4)."""
     if any(r.search(name) for r in (_CONV_TC, _S2_TC, _DW_TC, _NIN_TC,
-                                    _NOUT_TC)):
+                                    _NOUT_TC, _S2_NIN_TC, _K3_NARROW_TC)):
         return "tensor cores"
     if _CONV.search(name) or _DW.search(name):
         return "cuda cores"

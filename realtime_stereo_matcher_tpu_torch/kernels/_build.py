@@ -46,9 +46,9 @@ _SIGNATURES = {
     # x, w, scale, bias, res, out, n, h, w, cin, cout, dilation, th, tw,
     # ring, steps, grid x, y, z, shared bytes, act, alpha, device, stream
     "rsm_conv3x3_tc": [_P] * 6 + [_I] * 15 + [ctypes.c_float, _I, _P],
-    # x, w, scale, bias, out, n, d, h, w, th, tw, ring, steps, grid x, y, z,
-    # shared bytes, act, device, stream
-    "rsm_conv3d_tc": [_P] * 5 + [_I] * 14 + [_P],
+    # x, w, scale, bias, out, n, d, h, w, cin, cout, th, tw, ring, steps,
+    # grid x, y, z, shared bytes, act, device, stream
+    "rsm_conv3d_tc": [_P] * 5 + [_I] * 16 + [_P],
     # x, w, scale, bias, out, dtype, n, h, w, cin, cout, ho, wo, act, alpha,
     # device, stream
     "rsm_conv4x4_s2": [_P] * 5 + [_I] * 9 + [ctypes.c_float, _I, _P],
@@ -56,9 +56,9 @@ _SIGNATURES = {
     "rsm_conv3d": [_P] * 5 + [_I] * 9 + [_P],
     # x, g, work, out, dtype, n, d, h, w, cin, cout, kd, dil, device, stream
     "rsm_dw_reduce": [_P] * 4 + [_I] * 10 + [_P],
-    # x, w, scale, bias, out, n, h, w, ho, wo, taps, th, tw, ring, steps,
-    # grid x, y, z, shared bytes, act, alpha, device, stream
-    "rsm_conv_s2_tc": [_P] * 5 + [_I] * 15 + [ctypes.c_float, _I, _P],
+    # x, w, scale, bias, out, n, h, w, ho, wo, cin, taps, th, tw, ring,
+    # steps, grid x, y, z, shared bytes, act, alpha, device, stream
+    "rsm_conv_s2_tc": [_P] * 5 + [_I] * 16 + [ctypes.c_float, _I, _P],
     # x, g, work, out, work floats, n, d, h, w, cin, cout, kd, dil, th, tw,
     # ring, steps, grid x, y, z, shared bytes, device, stream
     "rsm_dw_reduce_tc": [_P] * 4 + [ctypes.c_longlong] + [_I] * 17 + [_P],

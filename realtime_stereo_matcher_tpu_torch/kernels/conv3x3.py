@@ -17,10 +17,10 @@ two TPU kernels it replaces); on a CPU tensor it runs
 Which kernel runs is decided by dtype, stride and channel pair: in bf16, at
 stride 1 every pair runs on the tensor cores, ``rsm_conv3x3_tc`` by the tile
 plan of :func:`conv3x3_tc_plan` (32 -> 32: ``csrc/conv_tc.cuh``; a narrow
-side, ``TC_NARROW``: ``csrc/conv_narrow_tc.cuh``), and at stride 2 the
-32 -> 32 pair runs ``rsm_conv_s2_tc`` (``csrc/conv_s2_tc.cuh``) by
-:func:`conv_s2_tc_plan`; float32, and the bf16 stride-2 3 -> 32 pair, run
-the CUDA-core template (``rsm_conv3x3``, ``csrc/conv_common.cuh``).
+side, ``TC_NARROW``: ``csrc/conv_narrow_tc.cuh``), and at stride 2 both
+pairs (32 -> 32 and the 3 -> 32 encoder stem) run ``rsm_conv_s2_tc``
+(``csrc/conv_s2_tc.cuh``) by :func:`conv_s2_tc_plan`; float32 runs the
+CUDA-core template (``rsm_conv3x3``, ``csrc/conv_common.cuh``).
 
 ``fused_conv4x4_s2`` is the v3 U-Net's downsampler, a 4x4 stride-2 conv with
 TF-SAME padding (output pixel X reads input 2X-1 .. 2X+2, so H and W become
@@ -64,6 +64,12 @@ TC_STAGE_BYTES = 8 * 16 * TC_PIX_BYTES
 # to 5 k16 steps) of 32 output channels, or 288 rows of 8
 TC_NARROW = {(1, 32), (3, 32), (4, 32), (7, 32), (32, 1), (32, 4), (32, 7)}
 TC_NARROW_PIX_BYTES = 16
+# The stride-2 3 -> 32 stem on the tensor cores (csrc/conv_s2_tc.cuh
+# conv_s2_nin_tc_kernel): input rows of 2 x 32 + 2 staged 8-byte pixels (4
+# channels), weights 48 rows (3 row taps x 4 column taps x 4 input channels)
+# of 32 output channels
+TC_S2_NARROW_CIN = 3
+TC_S2_NARROW_PIX_BYTES = 8
 SMEM_RESERVED = 1024
 GRID_YZ_MAX = 65535
 K1_TILE = (8, 64)   # output rows x columns of one step (csrc Tile<1>)
@@ -201,19 +207,36 @@ def s2_ring(taps: int, th: int = S2_TILE[0]) -> int:
     return 4 * th + taps - 2
 
 
+def conv_s2_tc_smem(taps: int, cin: int = 32) -> int:
+    """Dynamic shared memory of a stride-2 tensor-core plan: the weights,
+    the ring of ``s2_ring(taps)`` input rows (32 -> 32: two column-parity
+    planes of 34 64-byte pixels; the 3 -> 32 stem: 66 8-byte pixels) and 8
+    KB of output staging (csrc ``s2_smem_bytes``, ``s2_nin_smem_bytes``)."""
+    tw = S2_TILE[1]
+    if cin == 32:
+        return (taps * taps * 32 + s2_ring(taps) * 2 * (tw + 2)) \
+            * TC_PIX_BYTES + TC_STAGE_BYTES
+    if (cin, taps) != (TC_S2_NARROW_CIN, 3):
+        raise ValueError(f"no stride-2 tensor-core kernel for {cin} -> 32 "
+                         f"with {taps} x {taps} taps")
+    return 48 * TC_PIX_BYTES + s2_ring(taps) * (2 * tw + 2) \
+        * TC_S2_NARROW_PIX_BYTES + TC_STAGE_BYTES
+
+
 @functools.cache  # called on every launch
-def conv_s2_tc_plan(n: int, h: int, w: int, taps: int, card: Card) -> S2Plan:
-    """Tile plan of the bf16 32 -> 32 stride-2 conv (``taps`` x ``taps``,
-    padding 1 before) on the tensor cores: 8 x 32 output tiles, a ring of
-    ``s2_ring(taps)`` input rows of 2 x 34 pixels beside the resident
-    weights (one block per SM), rows per block chosen so that the launch on
-    ``card`` ends soonest: full waves times the input rows one block loads,
-    counting its first step's twice (no MMA overlaps their arrival, and no
-    second block on the SM does)."""
+def conv_s2_tc_plan(n: int, h: int, w: int, taps: int, card: Card,
+                    cin: int = 32) -> S2Plan:
+    """Tile plan of a bf16 stride-2 conv (``taps`` x ``taps``, padding 1
+    before) on the tensor cores, 32 -> 32, or 3 -> 32 with 3 taps: 8 x 32
+    output tiles, a ring of ``s2_ring(taps)`` input rows beside the
+    resident weights (32 -> 32: one block per SM; 3 -> 32, whose staged
+    pixels are 8 bytes: two), rows per block chosen so that the
+    launch on ``card`` ends soonest: full waves times the input rows one
+    block loads, counting its first step's twice (no MMA overlaps their
+    arrival)."""
     th, tw = S2_TILE
     ring = s2_ring(taps, th)
-    smem = (taps * taps * 32 + ring * 2 * (tw + 2)) * TC_PIX_BYTES \
-        + TC_STAGE_BYTES
+    smem = conv_s2_tc_smem(taps, cin)
     ho, wo = (h + 1) // 2, (w + 1) // 2
     tiles_h, tiles_w = -(-ho // th), -(-wo // tw)
     slots = card.sms * tc_blocks_per_sm(smem, card)
@@ -225,13 +248,13 @@ def conv_s2_tc_plan(n: int, h: int, w: int, taps: int, card: Card) -> S2Plan:
 
 def _launch_s2_tc(x, w, scale, bias, out, taps: int, act_code: int,
                   alpha: float, name: str) -> None:
-    """One bf16 32 -> 32 stride-2 launch of ``rsm_conv_s2_tc``, counted as
-    ``name``."""
-    n, h, wd, _ = x.shape
-    plan = conv_s2_tc_plan(n, h, wd, taps, card_of(x.device.index))
+    """One bf16 stride-2 launch of ``rsm_conv_s2_tc`` (32 -> 32, or the
+    3 -> 32 stem), counted as ``name``."""
+    n, h, wd, cin = x.shape
+    plan = conv_s2_tc_plan(n, h, wd, taps, card_of(x.device.index), cin)
     _build.check(_build.library().rsm_conv_s2_tc(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), n, h, wd, *plan.out_hw, taps, plan.th, plan.tw,
+        out.data_ptr(), n, h, wd, *plan.out_hw, cin, taps, plan.th, plan.tw,
         plan.ring, plan.steps, *plan.grid, plan.smem, act_code, alpha,
         x.device.index, _build.stream_of(x)), name)
     _build.LAUNCHES[name] += 1
@@ -287,12 +310,11 @@ def fused_conv3x3(x, w, scale, bias, *, stride=1, dilation=1, act="relu",
     Arguments as in :func:`fused_conv3x3_plain`.  On CUDA: x, w and residual
     share one dtype (float32 or bfloat16), scale and bias are float32, all
     are contiguous, and (C_in, C_out) is one of ``SUPPORTED_CHANNELS``.
-    Routing on CUDA, by dtype, stride and channel pair: bf16 at stride 1
-    (``TC_CHANNELS`` and ``TC_NARROW``) launches ``rsm_conv3x3_tc`` with
-    :func:`conv3x3_tc_plan`, bf16 ``TC_CHANNELS`` at stride 2
-    ``rsm_conv_s2_tc`` with :func:`conv_s2_tc_plan`; every other call the
-    CUDA-core template (``rsm_conv3x3``).  All count as
-    ``KERNEL_NAMES[stride]``."""
+    Routing on CUDA, by dtype and stride: bf16 at stride 1 (``TC_CHANNELS``
+    and ``TC_NARROW``) launches ``rsm_conv3x3_tc`` with
+    :func:`conv3x3_tc_plan`, bf16 at stride 2 (32 -> 32 and 3 -> 32)
+    ``rsm_conv_s2_tc`` with :func:`conv_s2_tc_plan`; float32 the CUDA-core
+    template (``rsm_conv3x3``).  All count as ``KERNEL_NAMES[stride]``."""
     if x.device.type == "cpu":
         return fused_conv3x3_plain(x, w, scale, bias, stride=stride,
                                    dilation=dilation, act=act,
@@ -328,7 +350,10 @@ def fused_conv3x3(x, w, scale, bias, *, stride=1, dilation=1, act="relu",
 
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=dev)
     name = KERNEL_NAMES[stride]
-    if x.dtype == torch.bfloat16 and (cin, cout) == TC_CHANNELS and stride == 2:
+    if x.dtype == torch.bfloat16 and stride == 2:
+        if residual is not None:
+            raise ValueError("fused_conv3x3: the bf16 stride-2 kernel takes "
+                             "no residual")
         _launch_s2_tc(x, w, scale, bias, out, 3, act_code, alpha, name)
         return out
     if x.dtype == torch.bfloat16 and stride == 1:

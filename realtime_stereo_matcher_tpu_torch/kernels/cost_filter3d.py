@@ -9,10 +9,12 @@ padding in D, H and W,
 On a CUDA tensor it launches a hand-written kernel of ``csrc/conv3d.cu``
 (counted as ``fused_conv3d``); on a CPU tensor it runs
 :func:`fused_conv3d_plain`.  There is no fallback from the one to the other.
-Which kernel runs is decided by dtype and channel pair: bf16 32 -> 32 runs
-the tensor-core kernel (``rsm_conv3d_tc``, ``csrc/conv_tc.cuh``) by the tile
-plan of :func:`conv3d_tc_plan`; float32 and the 32 -> 1 / 1 -> 32 pairs run
-the CUDA-core template (``rsm_conv3d``, ``csrc/conv_common.cuh``).
+Which kernel runs is decided by dtype and channel pair: in bf16 every pair
+runs on the tensor cores (``rsm_conv3d_tc``) by the tile plan of
+:func:`conv3d_tc_plan`: 32 -> 32 the implicit GEMM of ``csrc/conv_tc.cuh``,
+the 32 -> 1 head and its 1 -> 32 dx those of ``csrc/conv3d_narrow_tc.cuh``;
+float32 runs the CUDA-core template (``rsm_conv3d``,
+``csrc/conv_common.cuh``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import torch.nn.functional as F
 
 from realtime_stereo_matcher_tpu_torch.kernels import _build
 from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
-    TC_CHANNELS,
     TC_PIX_BYTES,
     TC_STAGE_BYTES,
     Card,
@@ -42,19 +43,40 @@ K3_TILE = (16, 32)  # (h, w) output tile of a block (csrc Tile<3>)
 K3_RING = 4         # input depth slabs held in shared memory
 
 
+def conv3d_tc_smem(cin: int = 32, cout: int = 32) -> int:
+    """Dynamic shared memory of a 3x3x3 tensor-core plan: the weights, the
+    ring of 4 slabs of 18 x 34 pixels and 8 KB of output staging (csrc
+    ``smem_bytes<3>``, ``conv3d_narrow_smem_bytes``).  32 -> 32: 864 weight
+    rows of 64 bytes; 32 -> 1: 288 rows ((dz, dy) x input channel) of 16,
+    kx in the 8 padded output columns; 1 -> 32: 32 rows (taps) of 64, and
+    2-byte pixels."""
+    th, tw = K3_TILE
+    slab = (th + 2) * (tw + 2)
+    if (cin, cout) == (32, 32):
+        weights, pix = 27 * 32 * TC_PIX_BYTES, TC_PIX_BYTES
+    elif (cin, cout) == (32, 1):
+        weights, pix = 9 * 32 * 16, TC_PIX_BYTES
+    elif (cin, cout) == (1, 32):
+        weights, pix = 32 * TC_PIX_BYTES, 2
+    else:
+        raise ValueError(f"no 3x3x3 tensor-core kernel for {cin} -> {cout}")
+    return weights + K3_RING * slab * pix + TC_STAGE_BYTES
+
+
 @functools.cache  # called on every launch
-def conv3d_tc_plan(b: int, d: int, h: int, w: int, card: Card) -> TcPlan:
-    """Tile plan of the bf16 32 -> 32 3x3x3 conv on the tensor cores.
+def conv3d_tc_plan(b: int, d: int, h: int, w: int, card: Card,
+                   cin: int = 32, cout: int = 32) -> TcPlan:
+    """Tile plan of a bf16 3x3x3 conv on the tensor cores, 32 -> 32 or a
+    narrow pair (32 -> 1, 1 -> 32).
 
     A block owns a 16 x 32 (h, w) tile and walks along D with a ring of 4
-    input slabs of 18 x 34 pixels, beside 54 KB of resident weights (one
-    block per SM).  D is split into chunks, each reloading its two halo
-    slabs, chosen so that the launch on ``card`` ends soonest: full waves
-    times one block's depths plus one for its first slabs, which no MMA
-    overlaps."""
+    input slabs of 18 x 34 pixels beside its weights (32 -> 32 and 32 -> 1:
+    one block per SM; 1 -> 32, whose slabs are 2-byte pixels: two).  D is
+    split into chunks, each reloading its two halo slabs, chosen so that the
+    launch on ``card`` ends soonest: full waves times one block's depths
+    plus one for its first slabs, which no MMA overlaps."""
     th, tw = K3_TILE
-    smem = 27 * 32 * TC_PIX_BYTES \
-        + K3_RING * (th + 2) * (tw + 2) * TC_PIX_BYTES + TC_STAGE_BYTES
+    smem = conv3d_tc_smem(cin, cout)
     tiles = -(-h // th) * -(-w // tw)
     slots = card.sms * tc_blocks_per_sm(smem, card)
     steps = _pick_steps(d, tiles * b, slots, lambda s: s + 1)
@@ -83,10 +105,10 @@ def fused_conv3d(x, w, scale, bias, *, relu=True):
     Arguments as in :func:`fused_conv3d_plain`.  On CUDA: x and w share one
     dtype (float32 or bfloat16), scale and bias are float32, all are
     contiguous, and (C_in, C_out) is one of ``SUPPORTED_CHANNELS``.
-    Routing on CUDA, by dtype and channel pair: bf16 ``TC_CHANNELS``
-    launches the tensor-core kernel (``rsm_conv3d_tc``) with
-    :func:`conv3d_tc_plan`; every other call the CUDA-core template
-    (``rsm_conv3d``).  Both count as ``KERNEL_NAME``."""
+    Routing on CUDA, by dtype: bf16 launches the tensor-core kernels
+    (``rsm_conv3d_tc``) with :func:`conv3d_tc_plan` for the pair, float32
+    the CUDA-core template (``rsm_conv3d``).  Both count as
+    ``KERNEL_NAME``."""
     if x.device.type == "cpu":
         return fused_conv3d_plain(x, w, scale, bias, relu=relu)
     if x.device.type != "cuda":
@@ -110,13 +132,13 @@ def fused_conv3d(x, w, scale, bias, *, relu=True):
         _build.require(t, name, shape=(cout,), dtype=torch.float32, device=dev)
 
     out = torch.empty((b, d, h, wd, cout), dtype=x.dtype, device=dev)
-    if x.dtype == torch.bfloat16 and (cin, cout) == TC_CHANNELS:
-        plan = conv3d_tc_plan(b, d, h, wd, card_of(dev.index))
+    if x.dtype == torch.bfloat16:
+        plan = conv3d_tc_plan(b, d, h, wd, card_of(dev.index), cin, cout)
         rc = _build.library().rsm_conv3d_tc(
             x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, d, h, wd, plan.th, plan.tw, plan.ring,
-            plan.steps, *plan.grid, plan.smem, 1 if relu else 0, dev.index,
-            _build.stream_of(x))
+            out.data_ptr(), b, d, h, wd, cin, cout, plan.th, plan.tw,
+            plan.ring, plan.steps, *plan.grid, plan.smem, 1 if relu else 0,
+            dev.index, _build.stream_of(x))
         _build.check(rc, KERNEL_NAME)
         _build.LAUNCHES[KERNEL_NAME] += 1
         return out

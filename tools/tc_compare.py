@@ -6,10 +6,12 @@
 
 ``variants``: the tensor-core kernels (bf16: K1 and K3 32 -> 32 of
 ``csrc/conv_tc.cuh``, K1's narrow pairs of ``csrc/conv_narrow_tc.cuh``, K4 of
-``csrc/dw_tc.cuh``, K2 and K2-4x4 of ``csrc/conv_s2_tc.cuh``) as built, with
-parts of their work cut out (the ``RSM_TC_CUT_*`` macros of ``conv_tc.cuh``,
-which the other headers include and test too), and K3's wgmma form
-(``tools/conv_tc_wgmma.cuh`` in place of ``conv_tc.cuh``).  Each variant is a copy of the package under ``DIR``,
+``csrc/dw_tc.cuh``, K2 and K2-4x4 of ``csrc/conv_s2_tc.cuh``, K3's narrow
+pairs of ``csrc/conv3d_narrow_tc.cuh``) as built, with parts of their work
+cut out (the ``RSM_TC_CUT_*`` macros of ``conv_tc.cuh``, which the other
+headers include and test too), and K3's wgmma form
+(``tools/conv_tc_wgmma.cuh`` in place of ``conv_tc.cuh``).  Each variant is
+a copy of the package under ``DIR``,
 built and timed in a process of its own; the variants run in turns
 (A B ... B A); ``--only`` keeps the variants named.  A cut variant's
 results are wrong by design: only its time means anything.
@@ -26,8 +28,8 @@ The timings: K1 at 720 x 1280 32 -> 32 +residual, dilations 1 and 8, K3
 at (1, 24, 90, 160) and (4, 24, 60, 80), K4 at 4 x 480 x 640 (dilations 1
 and 8) and (4, 24, 60, 80), K2-4x4 at 720 x 1280 and K2 at 360 x 640; the
 narrow pairs at their largest launches (K1 1 / 3 / 4 / 7 -> 32 and 32 -> 1 /
-4 / 7, K4 4 / 7 -> 32 and 32 -> 1 in 2D and 3D, and those still on the CUDA
-cores: K2 3 -> 32, K3 32 -> 1 and 1 -> 32); each beside the cuDNN call of
+4 / 7, K4 4 / 7 -> 32 and 32 -> 1 in 2D and 3D, K2 3 -> 32, K3 32 -> 1 and
+1 -> 32); each beside the cuDNN call of
 the same convolution (for K4 its weight gradient), read two ways: ``ms``, CUDA events around 20 calls, as
 ``chip_smoke.py``'s ``time_ms`` reads every row (where the host issues the
 calls more slowly than the card runs them, this times the host too), and
