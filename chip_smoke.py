@@ -80,8 +80,25 @@ imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
     (batch 8, 240 x 320).  The plain step warps with the kernel path's
     band (``banded_warp=True``): at the train-start init the flows run far
     past the band, where the unbanded warp still samples the image.
-11. report: one ``{"kernels": [...]}`` line, one latency line, the
-    ``nvidia-smi`` name and power limit, and last
+10a. eval: the trained v2 and v3 (``realtime_stereo_matcher_tpu_torch/
+    weights/``, loaded by ``models/checkpoint.py``, each built from the
+    config ``weights/held_out.json`` names).  For each, the evaluation
+    entry point ``evaluate.main`` on its config's test set (the 40
+    held-out synthetic scenes at 320 x 448) with the bf16 kernel path, the
+    main path, its launches counted from 0 (every forward, the latency's
+    included); then ``validate_synthetic`` with the bf16 kernel path, the
+    float32 kernel path and the plain float32 model (unbanded, as the JAX
+    package's Flax).  Held: the plain EPE within 1e-3 px and D1 within
+    0.05 points of the JAX package's (``held_out.json``); the float32
+    kernel path within rtol 1e-3 / atol 5e-2 of the banded plain model on
+    the first three scenes, and its EPE within 0.01 px of the plain EPE;
+    the bf16 EPE at most 0.05 px and its D1 at most 2 points above the
+    plain ones; v2 also at the padded KITTI shape 384 x 1280 (a synthetic
+    scene), float32 kernel path against the banded plain model.
+11. report: one ``{"kernels": [...]}`` line (each kernel's
+    ``launches_by_path`` with ``eval_v2`` / ``eval_v3``, its launches a
+    frame of the eval phase), one latency line (the eval metrics under
+    ``eval``), the ``nvidia-smi`` name and power limit, and last
     ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no "ok".
@@ -101,9 +118,14 @@ import time
 import torch
 import torch.nn.functional as F
 
-from realtime_stereo_matcher_tpu_torch import bench, frame_profile
+from realtime_stereo_matcher_tpu_torch import bench, evaluate, frame_profile
 from realtime_stereo_matcher_tpu_torch.config import load_config
-from realtime_stereo_matcher_tpu_torch.data.synthetic import SyntheticBatches
+from realtime_stereo_matcher_tpu_torch.data.synthetic import (
+    SyntheticBatches,
+    SyntheticStereo,
+    make_scene,
+)
+from realtime_stereo_matcher_tpu_torch.eval import validators
 from realtime_stereo_matcher_tpu_torch.kernels import _build
 from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
     fused_conv3x3,
@@ -126,6 +148,7 @@ from realtime_stereo_matcher_tpu_torch.kernels.train_conv import (
 )
 from realtime_stereo_matcher_tpu_torch.kernels.train_conv3d import flat_conv3d
 from realtime_stereo_matcher_tpu_torch.models import build_model
+from realtime_stereo_matcher_tpu_torch.models.checkpoint import load_weights
 from realtime_stereo_matcher_tpu_torch.models.fast_infer import make_fast_forward
 from realtime_stereo_matcher_tpu_torch.models.fast_train import (
     fast_train_forward,
@@ -255,6 +278,24 @@ NARROW_ACT = {(4, 32): "relu", (7, 32): "relu", (3, 32): 0.2, (1, 32): "none",
 # device clock cycles queued ahead of a device-time run (~50 ms at 1.98 GHz)
 SLEEP_CYCLES = 100_000_000
 ROOT = pathlib.Path(__file__).resolve().parent
+# the trained weights and the JAX package's held-out metrics of each
+HELD_OUT = ROOT / "realtime_stereo_matcher_tpu_torch" / "weights" / "held_out.json"
+# eval bounds: plain float32 on the card against the JAX package's EPE (px)
+# and D1 (points); the float32 kernel path's EPE against the plain one's;
+# the bf16 kernel path's EPE and D1 above the plain ones (the TPU's bf16
+# gap was ~0.03 px and 0.7-1.4 points; the H100's was -0.008 / 0.00005 px
+# and 0.03 / -0.04 points, so D1 is held to five times that); the bf16
+# kernel path's median |d| against the banded plain model per scene, as
+# ``check_kernel_path`` holds the 720p frames
+EVAL_PLAIN_EPE_TOL, EVAL_PLAIN_D1_TOL = 1e-3, 0.05
+EVAL_F32_EPE_TOL = 0.01
+EVAL_BF16_EPE_GAP, EVAL_BF16_D1_GAP = 0.05, 0.2
+EVAL_BF16_MEDIAN_PX = 1.0
+# held-out scenes of validate_synthetic (its default, the configs' test
+# set); scenes held per pixel against the banded plain model; KITTI 2015's
+# 375 x 1242 frames padded to /64
+EVAL_SCENES, EVAL_PIXEL_SCENES, KITTI_PADDED_HW = 40, 3, (384, 1280)
+EVAL_HW = ((320, 448), KITTI_PADDED_HW)
 # peak memory rate (bytes/s) and dense bf16 tensor-core rate (FLOP/s) from
 # NVIDIA's data sheets, by card name; other cards use the H100 SXM row
 PEAKS = {"H200": (4.8e12, 989e12), "H100": (3.35e12, 989e12)}
@@ -1326,13 +1367,14 @@ def conv4x4_operands(hw, dtype, device, gen):
     return _operands((1, *hw, 32), (4, 4, 32, 32), 32, dtype, device, gen)
 
 
-def check_v3_kernels(device) -> dict:
-    """K1's v3 cases and K2-4x4 against their plain versions."""
-    worst = check_kernels(device, v3_conv3x3_cases(), [])
+def check_v3_kernels(device, size=HW) -> dict:
+    """K1's v3 cases and K2-4x4 against their plain versions at an input of
+    ``size``."""
+    worst = check_kernels(device, v3_conv3x3_cases(*size), [])
     gen = torch.Generator(device=device).manual_seed(SEED + 6)
     for dtype, tol, tag in ((torch.float32, TOL_F32, "f32"),
                             (torch.bfloat16, TOL_BF16, "bf16")):
-        for hw in conv4x4_cases():
+        for hw in conv4x4_cases(*size):
             args = conv4x4_operands(hw, dtype, device, gen)
             got = fused_conv4x4_s2(*args, act=0.2)
             ref = fused_conv4x4_s2_plain(*(a.float() for a in args), act=0.2)
@@ -1341,6 +1383,34 @@ def check_v3_kernels(device) -> dict:
                 got, ref, tol, f"fused_conv4x4_s2 {hw} {dtype}"))
         log(f"  {len(conv4x4_cases())} K2-4x4 cases within tolerance in "
             f"{dtype}")
+    return worst
+
+
+def eval_conv3x3_cases(h: int, w: int) -> list[dict]:
+    """K1 and K2 cases of the v2 and v3 frames at an h x w input: v1's with
+    v2's 7 -> 32 refine entry in place of the 4 -> 32 one (v3's refine
+    levels run the same dilated ResBlocks and 32 -> 1 heads); v3's own are
+    ``check_v3_kernels``'s."""
+    return [dict(c, cin=7) if c["cin"] == 4 else c
+            for c in conv3x3_cases(h, w)]
+
+
+def check_eval_kernels(device) -> dict:
+    """Every kernel launch shape of the v2 / v3 eval frames against its
+    plain version, at each level of the held-out scenes' 320 x 448 and of
+    KITTI's padded 384 x 1280 (K3 at (1, 24, 40, 56) and (1, 24, 48, 160)),
+    float32 and bf16 within ``TOL_F32`` / ``TOL_BF16``; returns the largest
+    abs error per kernel name and dtype."""
+    worst: dict = {}
+    for hw in EVAL_HW:
+        for part in (check_kernels(device, eval_conv3x3_cases(*hw),
+                                   conv3d_cases(*hw)),
+                     check_v3_kernels(device, hw)):
+            for key, err in part.items():
+                worst[key] = max(worst.get(key, 0.0), err)
+        log(f"  eval kernels at {hw[0]}x{hw[1]} within tolerance")
+    log("  eval kernels, largest abs error: "
+        + json.dumps({" ".join(k): v for k, v in sorted(worst.items())}))
     return worst
 
 
@@ -1708,6 +1778,130 @@ def check_train(device, name: str = "v1") -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# eval: the trained v2 and v3 through the evaluation entry point
+# ---------------------------------------------------------------------------
+
+
+def _eval_pixels(runners, model, left, right, what) -> tuple[list, float]:
+    """Against the plain model with the same banded warp: the float32
+    kernel path per head (rtol 1e-3, atol 5e-2), and the bf16 kernel path's
+    final head by its median |d| (at most ``EVAL_BF16_MEDIAN_PX``).
+    Returns the float32 max abs errors and the bf16 median."""
+    with torch.no_grad():
+        plain = model(left, right, banded_warp=True)
+    fast = runners["f32 kernel path"](left, right)
+    f32 = [_compare(g, w, (5e-2, 1e-3), f"{what} head {i}")
+           for i, (g, w) in enumerate(zip(fast, plain))]
+    final = runners["bf16 kernel path"](left, right)[-1]
+    if final.shape != plain[-1].shape or not bool(
+            torch.isfinite(final).all()):
+        raise AssertionError(f"{what} bf16 output {tuple(final.shape)}")
+    median = float((final.float() - plain[-1]).abs().median())
+    if not median <= EVAL_BF16_MEDIAN_PX:
+        raise AssertionError(f"{what} bf16 kernel path median |d| {median} "
+                             f"px against the banded plain model")
+    return f32, median
+
+
+def check_eval(device, name: str, per_frame: dict) -> dict:
+    """The trained ``name`` (v2 or v3) through ``evaluate.main`` (the main
+    path, launches counted) and ``validate_synthetic`` with three runners,
+    held to the JAX package's held-out metrics (phase 10a)."""
+    spec = json.loads(HELD_OUT.read_text())[name]
+    want = spec["validate_synthetic"]
+    config_path, weights = ROOT / spec["config"], ROOT / spec["weights"]
+    config = load_config(config_path)
+    if not config.model.mixed_precision:
+        raise AssertionError(f"{name}: the eval main path is bf16")
+
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    main_path = evaluate.main([f"--exp_config_json={config_path}",
+                               f"--model_chkpt_file={weights}",
+                               f"--device={device}"])
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    # one padded shape: the scenes, then the latency's warm-up and timed runs
+    forwards = (EVAL_SCENES + validators.LATENCY_WARMUP
+                + validators.LATENCY_ITERS)
+    if launches != {k: v * forwards for k, v in per_frame.items()}:
+        raise AssertionError(f"{name} eval launches {launches} over "
+                             f"{forwards} forwards, expected {per_frame} "
+                             f"a forward")
+    log(f"  {name} evaluate.main (bf16 kernel path): {json.dumps(main_path)}"
+        f"; launches {launches} = {per_frame} x {forwards} forwards")
+
+    model = build_model(config.model.as_dict(), device=device)
+    load_weights(weights, model)
+    runners = {
+        "bf16 kernel path": validators.ModelRunner(
+            model, fast=True, dtype=torch.bfloat16, device=device),
+        "f32 kernel path": validators.ModelRunner(
+            model, fast=True, dtype=torch.float32, device=device),
+        "plain f32": validators.ModelRunner(model, fast=False, device=device)}
+    metrics = {k: validators.validate_synthetic(r, n_images=EVAL_SCENES)
+               for k, r in runners.items()}
+    plain, f32, bf16 = (metrics[k] for k in ("plain f32", "f32 kernel path",
+                                             "bf16 kernel path"))
+    gaps = dict(
+        plain_epe_vs_jax=plain["synthetic-epe"] - want["synthetic-epe"],
+        plain_d1_vs_jax=plain["synthetic-d1"] - want["synthetic-d1"],
+        f32_epe_vs_plain=f32["synthetic-epe"] - plain["synthetic-epe"],
+        bf16_epe_vs_plain=bf16["synthetic-epe"] - plain["synthetic-epe"],
+        bf16_d1_vs_plain=bf16["synthetic-d1"] - plain["synthetic-d1"],
+        main_path_epe_vs_bf16=(main_path["synthetic-epe"]
+                               - bf16["synthetic-epe"]))
+    log(f"  {name} validate_synthetic: {json.dumps(metrics)}; JAX "
+        f"(held_out.json) {json.dumps(want)}; gaps {json.dumps(gaps)}")
+
+    # per scene: the f32 kernel path's max abs err per head and the bf16
+    # kernel path's median |d|, against the banded plain model
+    pixels, medians = [], []
+    scenes = SyntheticStereo(length=EVAL_PIXEL_SCENES, seed0=10 ** 6)
+    for i in range(EVAL_PIXEL_SCENES):
+        _, image1, image2, _, _ = scenes[i]
+        left, right, _ = validators._prep(image1, image2, device)
+        f32_err, median = _eval_pixels(runners, model, left, right,
+                                       f"{name} scene {i}")
+        pixels.append(f32_err)
+        medians.append(median)
+    left, right, _, _ = make_scene(10 ** 6, *KITTI_PADDED_HW)
+    left, right = (torch.from_numpy(a[None].astype("float32")).to(device)
+                   for a in (left, right))
+    kitti, kitti_median = _eval_pixels(runners, model, left, right,
+                                       f"{name} {KITTI_PADDED_HW}")
+    log(f"  {name} against the banded plain model: f32 kernel path max abs "
+        f"err per head, scenes {pixels}, KITTI shape {kitti}; bf16 kernel "
+        f"path median |d| px, scenes {medians}, KITTI shape {kitti_median}")
+
+    if not abs(gaps["plain_epe_vs_jax"]) <= EVAL_PLAIN_EPE_TOL:
+        raise AssertionError(f"{name} plain f32 EPE {plain['synthetic-epe']}"
+                             f" against the JAX package's "
+                             f"{want['synthetic-epe']}")
+    if not abs(gaps["plain_d1_vs_jax"]) <= EVAL_PLAIN_D1_TOL:
+        raise AssertionError(f"{name} plain f32 D1 {plain['synthetic-d1']} "
+                             f"against the JAX package's "
+                             f"{want['synthetic-d1']}")
+    if not abs(gaps["f32_epe_vs_plain"]) <= EVAL_F32_EPE_TOL:
+        raise AssertionError(f"{name} f32 kernel path EPE "
+                             f"{f32['synthetic-epe']} against plain "
+                             f"{plain['synthetic-epe']}")
+    if not (gaps["bf16_epe_vs_plain"] <= EVAL_BF16_EPE_GAP
+            and gaps["bf16_d1_vs_plain"] <= EVAL_BF16_D1_GAP):
+        raise AssertionError(f"{name} bf16 kernel path EPE / D1 "
+                             f"{bf16['synthetic-epe']} / "
+                             f"{bf16['synthetic-d1']} against plain "
+                             f"{plain['synthetic-epe']} / "
+                             f"{plain['synthetic-d1']}")
+    return dict(launches={k: v // forwards for k, v in launches.items()},
+                launches_run=launches, forwards=forwards,
+                evaluate_main=main_path, validate_synthetic=metrics,
+                jax_held_out=want, gaps=gaps, f32_pixel_err=pixels,
+                f32_pixel_err_kitti=kitti, bf16_median_px=medians,
+                bf16_median_px_kitti=kitti_median)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1777,6 +1971,10 @@ def main() -> int:
         train_v2 = check_train(device, "v2")
     with Phase("train v3"):
         train_v3 = check_train(device, "v3")
+    with Phase("eval"):
+        eval_worst = check_eval_kernels(device)
+        eval_v2 = check_eval(device, "v2", LAUNCHES_PER_FRAME)
+        eval_v3 = check_eval(device, "v3", LAUNCHES_PER_FRAME_V3)
     # last: a profiler session can leave per-launch tracing costs on the
     # host, which would slow the frames and steps timed above
     with Phase("narrow routes"):
@@ -1811,6 +2009,10 @@ def main() -> int:
                                                         0.0),
                                         narrow_worst[("dw_reduce", key)])
         worst[("conv3x3_s2", key)] = v2_worst[("conv3x3_s2", key)]
+        for name in ("fused_conv3x3", "fused_conv3x3_s2", "fused_conv3d",
+                     "fused_conv4x4_s2"):
+            worst[(name, key)] = max(worst.get((name, key), 0.0),
+                                     eval_worst[(name, key)])
     over_scale = {
         "dw_reduce": {key: max(train_worst[("dw_reduce", key, "over scale")],
                                v2_worst[("dw_reduce", key, "over scale")],
@@ -1835,7 +2037,8 @@ def main() -> int:
             for label, groups in narrow_paths.items()}
     paths = {"train_run": train_result, "infer_frame": model_result,
              "infer_frame_v2": v2_result, "infer_frame_v3": v3_result,
-             "train_run_v2": train_v2, "train_run_v3": train_v3}
+             "train_run_v2": train_v2, "train_run_v3": train_v3,
+             "eval_v2": eval_v2, "eval_v3": eval_v3}
     kernels = []
     for name, row in rows.items():
         by_path = {p: r["launches"].get(name, 0) for p, r in paths.items()}
@@ -1894,6 +2097,7 @@ def main() -> int:
                     "train_step_ms_v3": step(train_v3),
                     "train": train_result, "train_v2": train_v2,
                     "train_v3": train_v3,
+                    "eval": {"v2": eval_v2, "v3": eval_v3},
                     "autograd_err": {" ".join(k): v
                                      for k, v in grad_worst.items()},
                     "nvidia_smi": smi}))

@@ -1,2 +1,3 @@
-"""Data for training (port of ``realtime_stereo_matcher_tpu/data/``): so far
-the procedural synthetic scenes only."""
+"""Data of the port (port of ``realtime_stereo_matcher_tpu/data/``): the
+procedural synthetic scenes, and the dataset readers and frame IO that
+evaluation reads."""

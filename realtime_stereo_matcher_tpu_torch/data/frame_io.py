@@ -1,0 +1,132 @@
+"""Dataset frame readers (a copy of the JAX package's framework-free
+``realtime_stereo_matcher_tpu/data/frame_io.py``, its readers only: no
+port code writes flow; reference dataset/frame_utils.py).
+
+Host-side IO stays numpy/PIL, CPU preprocessing feeding the card.  PIL is
+imported inside the readers of PNG / JPG only, so importing
+this module, the PFM and ``.flo`` readers and the synthetic scenes need no
+PIL.  Every reader mirrors the reference's decoding semantics:
+
+* ``.flo`` Middlebury flow (:13-32)
+* PFM via utils/pfm.py (:34-69)
+* KITTI 16-bit PNG disparity / 256 with disp > 0 validity (:124-127)
+* Sintel RGB-coded disparity + occlusion mask (:130-136)
+* FallingThings depth -> disparity via fx * 6 cm baseline (:139-146)
+* TartanAir npy depth -> disparity = 80 / depth (:149-153)
+* Middlebury PFM + nocc mask (:156-168)
+* ``read_gen`` extension dispatch (:177-191)
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from os.path import basename, exists, splitext
+
+import numpy as np
+
+from realtime_stereo_matcher_tpu_torch.utils.pfm import read_pfm
+
+
+def _pil_open(path):
+    from PIL import Image
+
+    return Image.open(path)
+
+
+def read_flow(path) -> np.ndarray | None:
+    """Middlebury .flo reader (little-endian)."""
+    with open(path, "rb") as f:
+        magic = np.fromfile(f, np.float32, count=1)
+        if magic != 202021.25:
+            return None
+        w = int(np.fromfile(f, np.int32, count=1)[0])
+        h = int(np.fromfile(f, np.int32, count=1)[0])
+        data = np.fromfile(f, np.float32, count=2 * w * h)
+    return np.resize(data, (h, w, 2))
+
+
+
+
+
+
+def _read_png_16bit(path) -> np.ndarray:
+    """16-bit grayscale PNG (KITTI disparity encoding)."""
+    img = _pil_open(path)
+    return np.asarray(img, dtype=np.float32)
+
+
+def read_disp_kitti(path):
+    """KITTI: uint16 png / 256, valid where > 0 (reference :124-127)."""
+    disp = _read_png_16bit(path) / 256.0
+    return disp, disp > 0.0
+
+
+def read_disp_sintel(path):
+    """Sintel RGB-coded disparity + occlusion mask (reference :130-136)."""
+    a = np.array(_pil_open(path))
+    d_r, d_g, d_b = np.split(a, 3, axis=2)
+    disp = (d_r * 4 + d_g / (2 ** 6) + d_b / (2 ** 14))[..., 0]
+    mask = np.array(_pil_open(path.replace("disparities", "occlusions")))
+    valid = (mask == 0) & (disp > 0)
+    return disp, valid
+
+
+def read_disp_falling_things(path):
+    """FallingThings: depth png + camera fx -> disparity (reference :139-146)."""
+    a = np.array(_pil_open(path))
+    cam_file = os.path.join(os.path.dirname(path), "_camera_settings.json")
+    with open(cam_file, "r") as f:
+        intrinsics = json.load(f)
+    fx = intrinsics["camera_settings"][0]["intrinsic_settings"]["fx"]
+    disp = (fx * 6.0 * 100) / a.astype(np.float32)
+    return disp, disp > 0
+
+
+def read_disp_tartan_air(path):
+    """TartanAir: npy depth -> disparity = 80 / depth (reference :149-153)."""
+    depth = np.load(path)
+    disp = 80.0 / depth
+    return disp, disp > 0
+
+
+def read_disp_middlebury(path):
+    """MiddEval3 disp0GT.pfm + mask0nocc.png, or 2014 disp0.pfm
+    (reference :156-168)."""
+    name = basename(path)
+    if name == "disp0GT.pfm":
+        disp, _ = read_pfm(path)
+        disp = disp.astype(np.float32)
+        assert disp.ndim == 2
+        nocc = path.replace("disp0GT.pfm", "mask0nocc.png")
+        assert exists(nocc)
+        mask = np.array(_pil_open(nocc)) == 255
+        assert np.any(mask)
+        return disp, mask
+    if name == "disp0.pfm":
+        disp, _ = read_pfm(path)
+        disp = disp.astype(np.float32)
+        return disp, disp < 1e3
+    raise ValueError(f"unknown middlebury disparity file: {path}")
+
+
+
+
+
+
+def read_gen(path, pil: bool = False):
+    """Extension-dispatch generic reader (reference :177-191)."""
+    ext = splitext(path)[-1]
+    if ext in (".png", ".jpeg", ".ppm", ".jpg"):
+        return _pil_open(path)
+    if ext in (".bin", ".raw"):
+        return np.load(path)
+    if ext == ".flo":
+        return read_flow(path).astype(np.float32)
+    if ext == ".pfm":
+        flow, _ = read_pfm(path)
+        flow = flow.astype(np.float32)
+        if flow.ndim == 2:
+            return flow
+        return flow[:, :, :-1]
+    return []

@@ -13,9 +13,11 @@ Scene ``i`` of a seed is always the same, and the same as the JAX
 package's scene ``i`` when that package has cv2: the noise resize is cv2's
 ``INTER_LINEAR`` geometry (half-pixel centres, edges clamped) and the remap
 is exact float bilinear, as cv2's is on float32 maps, both written in numpy
-here (the card's machine has no cv2).  :class:`SyntheticBatches` serves fixed-shape
-training batches in the repo's sample contract: flow = -disparity, NHWC
-float32.
+here (the card's machine has no cv2).  :class:`SyntheticStereo` is the
+map-style dataset of those scenes (the JAX package's, with the same
+``seed0`` partition: held-out seeds from 10**6 are ``validate_synthetic``'s)
+and :class:`SyntheticBatches` serves fixed-shape training batches, both in
+the repo's sample contract: flow = -disparity, NHWC float32.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import functools
 
 import numpy as np
 import torch
+
+from realtime_stereo_matcher_tpu_torch.data.datasets import StereoDataset
 
 
 @functools.lru_cache(maxsize=8)
@@ -114,6 +118,44 @@ def make_scene(seed: int, h: int = 320, w: int = 448, max_disp: float = 64.0,
     right = right_wide[:, margin:]
     return (left.astype(np.uint8), right.astype(np.uint8), disp,
             valid.astype(np.float32))
+
+
+class SyntheticStereo(StereoDataset):
+    """Map-style procedural dataset (contract of data/datasets.py).
+
+    ``seed0`` partitions scenes: disjoint ranges give disjoint train/holdout
+    sets.  Unaugmented, as evaluation reads it (``data/datasets.py``).
+    """
+
+    def __init__(self, aug_params=None, *, length: int = 2000,
+                 seed0: int = 0, image_hw=(320, 448), max_disp: float = 64.0):
+        super().__init__(aug_params)
+        self.length = int(length)
+        self.seed0 = int(seed0)
+        self.image_hw = tuple(image_hw)
+        self.max_disp = float(max_disp)
+        # scenes are deterministic per (seed, index): memoize raw scenes
+        # (~2 MB each at 320 x 448)
+        self._cache: dict = {}
+        # base-class bookkeeping so __mul__/ConcatDataset len() work
+        self.image_list = [[f"synthetic://{seed0 + i}/left",
+                            f"synthetic://{seed0 + i}/right"]
+                           for i in range(self.length)]
+        self.disparity_list = [f"synthetic://{seed0 + i}/disp"
+                               for i in range(self.length)]
+        self.extra_info = [[f"synthetic://{seed0 + i}"]
+                           for i in range(self.length)]
+
+    def __getitem__(self, index):
+        index = index % self.length
+        if index not in self._cache:
+            self._cache[index] = make_scene(
+                self.seed0 + index, *self.image_hw, max_disp=self.max_disp)
+        img1, img2, disp, valid = self._cache[index]
+        flow = -disp[..., None].astype(np.float32)
+        return (self.image_list[index] + [self.disparity_list[index]],
+                img1.astype(np.float32), img2.astype(np.float32), flow,
+                np.asarray(valid, np.float32))
 
 
 class SyntheticBatches:

@@ -3,7 +3,8 @@
 ``build_model`` takes the reference config schema
 ``{"type": <name>, "parameters": {...}}`` with the same type strings as the
 JAX package.  MobileStereoNet v1, v2 and v3 are ported so far; the other
-types are queued in ROADMAP.md.
+types are queued in ROADMAP.md.  ``is_neural`` tells the trained models
+from the classical baseline, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ _PORTED = {"MobileStereoNet": MobileStereoNet,
            "MobileStereoNetV3": MobileStereoNetV3}
 # types the JAX package builds that the port does not have yet
 _QUEUED = ("MobileStereoNetV4", "MobileDispNetC", "OpenCVSGBMModule")
+# the neural types of the JAX package, ported or not
+_NEURAL = (*_PORTED, "MobileStereoNetV4", "MobileDispNetC")
 
 
 def build_model(model_config: dict, *, device="cuda",
@@ -48,5 +51,11 @@ def build_model(model_config: dict, *, device="cuda",
     return model.to(dev).eval()
 
 
+def is_neural(model_config: dict) -> bool:
+    """Whether the config's type is a neural network (with weights to
+    load), not the classical SGBM baseline."""
+    return model_config["type"] in _NEURAL
+
+
 __all__ = ["MobileStereoNet", "MobileStereoNetV2", "MobileStereoNetV3",
-           "build_model"]
+           "build_model", "is_neural"]

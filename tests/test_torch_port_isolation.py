@@ -79,11 +79,26 @@ V3_MODULES = (
 )
 
 
+# the evaluation slice's modules, named for the same reason
+EVAL_MODULES = (
+    "realtime_stereo_matcher_tpu_torch.data.datasets",
+    "realtime_stereo_matcher_tpu_torch.data.frame_io",
+    "realtime_stereo_matcher_tpu_torch.eval.validators",
+    "realtime_stereo_matcher_tpu_torch.evaluate",
+    "realtime_stereo_matcher_tpu_torch.infer",
+    "realtime_stereo_matcher_tpu_torch.models.checkpoint",
+    "realtime_stereo_matcher_tpu_torch.utils.colorize",
+    "realtime_stereo_matcher_tpu_torch.utils.pfm",
+    "realtime_stereo_matcher_tpu_torch.utils.timing",
+)
+
+
 def test_imports_with_jax_blocked():
     """Every port module and chip_smoke import with the banned names made
     unimportable, so no import reaches them, directly or transitively."""
     assert set(TRAIN_MODULES) <= set(_module_names())
     assert set(V3_MODULES) <= set(_module_names())
+    assert set(EVAL_MODULES) <= set(_module_names())
     code = (
         "import importlib, sys\n"
         f"banned = {BANNED!r}\n"
@@ -99,6 +114,31 @@ def test_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "imported all" in proc.stdout
+
+
+def test_synthetic_eval_needs_no_pil_or_cv2():
+    """The card's machine has neither PIL nor cv2: with both (and JAX)
+    unimportable, every port module imports, and a small v2 runs the
+    synthetic validation on the CPU; PIL is imported only where PNG or JPG
+    files are read or written."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in {BANNED + ('PIL', 'cv2')!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {_module_names()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from realtime_stereo_matcher_tpu_torch.eval import validators\n"
+        "from realtime_stereo_matcher_tpu_torch.models import build_model\n"
+        "model = build_model({'type': 'MobileStereoNetV2', 'parameters': "
+        "{'max_disp': 32, 'refine_dilates': [1, 1], 'hidden_dim': 8}}, "
+        "device='cpu')\n"
+        "r = validators.validate_synthetic(validators.ModelRunner("
+        "model, device='cpu'), n_images=1, image_hw=(64, 96))\n"
+        "print('epe', r['synthetic-epe'])\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "epe " in proc.stdout
 
 
 def _run_smoke(cwd):

@@ -7,7 +7,11 @@ Its tiling is computed in Python (``conv3x3_tc_plan``,
 shape of the main paths and at ragged ones:
 
 * every output pixel is stored by exactly one block (a numpy coverage map
-  of the kernel's block mapping, restated here);
+  of the kernel's block mapping, restated here); also at the shapes of
+  evaluation (320 x 448, the held-out synthetic scenes, and KITTI's frames
+  padded to 384 x 1280, each level of the frame) for K1 at 32 -> 32 and
+  its narrow pairs, K2 (3x3 32 -> 32 and 3 -> 32, 4x4 32 -> 32) and K3
+  (32 -> 32, 32 -> 1, 1 -> 32);
 * a block's dynamic shared memory stays within the 227 KB (232,448 B) a
   block may opt in to on an H100 SXM (132 SMs of 228 KB), and the grid's y
   and z within 65,535;
@@ -33,8 +37,10 @@ import torch
 from realtime_stereo_matcher_tpu_torch.frame_profile import kernel_group
 from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
     GRID_YZ_MAX,
+    TC_NARROW,
     Card,
     conv3x3_tc_plan,
+    conv_s2_tc_plan,
     fused_conv3x3,
     fused_conv3x3_plain,
     tc_blocks_per_sm,
@@ -240,6 +246,58 @@ def test_bf16_conv3d_on_cpu_runs_plain_and_matches_jax(rng, relu):
     if relu:
         y = jnp.maximum(y, 0.0)
     _assert_within_bf16(got, np.asarray(y), f"relu={relu}")
+
+
+# the eval shapes, batch 1: validation at 320 x 448 (the held-out synthetic
+# scenes) and at KITTI 2015's 375 x 1242 padded to 384 x 1280, each level of
+# the frame (full to 1/8); the cost volume at 1/8 with D = 24
+EVAL_HW = [(320, 448), (384, 1280)]
+EVAL_LEVELS = [(1, h >> k, w >> k) for h, w in EVAL_HW for k in range(4)]
+EVAL_K3 = [(1, 24, 40, 56), (1, 24, 48, 160)]
+
+
+@pytest.mark.parametrize("pair", [(32, 32)] + sorted(TC_NARROW))
+@pytest.mark.parametrize("shape", EVAL_LEVELS)
+def test_k1_plans_cover_each_pixel_once_at_eval_shapes(shape, pair):
+    n, h, w = shape
+    for dilation in ((1, 2, 4, 8) if pair == (32, 32) else (1,)):
+        plan = conv3x3_tc_plan(n, h, w, dilation, H100, *pair)
+        assert plan.kd == 1 and plan.shape == (n, 1, h, w)
+        _check_limits(plan)
+        np.testing.assert_array_equal(_coverage(plan), 1)
+
+
+@pytest.mark.parametrize("taps,cin", [(3, 32), (4, 32), (3, 3)])
+@pytest.mark.parametrize("shape", [s for s in EVAL_LEVELS if s[1] >= 80])
+def test_k2_plans_cover_each_output_once_at_eval_shapes(shape, taps, cin):
+    """The stride-2 convs take the full, 1/2 and 1/4 levels: K2 3x3 (v1 /
+    v2 encoders: the 3 -> 32 stem, then 32 -> 32) and K2-4x4 (v3 U-Net).
+    ``conv_s2_tc_kernel`` maps block (x, y, z) to output columns
+    32 x .. + 32, row tiles y x steps .. of 8 rows, batch z."""
+    n, h, w = shape
+    plan = conv_s2_tc_plan(n, h, w, taps, H100, cin)
+    ho, wo = (h + 1) // 2, (w + 1) // 2
+    assert plan.out_hw == (ho, wo)
+    _check_limits(plan)
+    hits = np.zeros((n, ho, wo), np.int32)
+    gx, gy, gz = plan.grid
+    for b in range(gz):
+        for by in range(gy):
+            for bx in range(gx):
+                oy0 = by * plan.steps * plan.th
+                hits[b, oy0:oy0 + plan.steps * plan.th,
+                     bx * plan.tw:(bx + 1) * plan.tw] += 1
+    np.testing.assert_array_equal(hits, 1)
+
+
+@pytest.mark.parametrize("pair", [(32, 32), (32, 1), (1, 32)])
+@pytest.mark.parametrize("shape", EVAL_K3)
+def test_k3_plans_cover_each_voxel_once_at_eval_shapes(shape, pair):
+    b, d, h, w = shape
+    plan = conv3d_tc_plan(b, d, h, w, H100, *pair)
+    assert plan.kd == 3 and plan.shape == shape
+    _check_limits(plan)
+    np.testing.assert_array_equal(_coverage(plan), 1)
 
 
 @pytest.fixture
