@@ -2,6 +2,11 @@
 """Quickest proof that the PyTorch port builds and runs on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --train-config-steps 200
+
+The second form runs only the committed v2 synthetic training config as
+committed (``time_train_config``) and prints its timing; the first runs
+every phase below.
 
 Runs on one NVIDIA Hopper card (it exits non-zero at once without CUDA) and
 imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
@@ -39,11 +44,13 @@ imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
    ragged ones, float32 and bf16, each K4 launched twice for the same bits;
    then every narrow pair timed at its largest launch beside its plain
    version, one cuDNN call and the bound, with ``device_ms``.  After the
-   last timed phase (10): ``narrow routes``, one v1 and v3 frame and one v1
+   last timed phase (10b): ``narrow routes``, one v1 and v3 frame and one v1
    and v2 training step under the profiler, which must show every narrow
-   pair of those paths on the tensor cores and none on the CUDA cores; and
-   ``K7 profile``, K7's device time by the profiler.  Both come last because
-   a profiler session can slow the host's launches for the rest of the
+   pair of those paths on the tensor cores and none on the CUDA cores;
+   ``K7 profile``, K7's device time by the profiler; and ``augment
+   profile``, the device ms and launches of a step's resident fetch and
+   augmentation (phase 10b) by the profiler.  They come last because a
+   profiler session can slow the host's launches for the rest of the
    process.
 5. model: v1 from ``configure/stereo_net_config.json`` with seeded weights
    and BatchNorm stats; the float32 kernel path against the plain float32
@@ -95,18 +102,38 @@ imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
     the bf16 EPE at most 0.05 px and its D1 at most 2 points above the
     plain ones; v2 also at the padded KITTI shape 384 x 1280 (a synthetic
     scene), float32 kernel path against the banded plain model.
+10b. train config: ``configure/stereo_net_v2_synthetic_config.json``
+    through the train entry point ``train_stereo.main`` at its full width
+    and train section (batch 8, 240 x 320 crops of 320 x 448 scenes, bf16,
+    the kernel train path, ``device_augment``), its one cut 512 scenes
+    (``synthetic_512``, 0.59 GB resident) for its 4000, for 99 steps: the
+    resident path taken, every step's launches those of the v2 kernel step
+    (``LAUNCHES_PER_STEP``: the augmentation adds no hand-written kernel),
+    the losses finite, the metric log's rows those of the JAX package's
+    logger; ``apply_augment`` on the card against the same call on the CPU
+    (images within 1e-2 levels, flow within 1e-4 px, valid equal); resume
+    at an epoch boundary (64 scenes, an epoch of 8 batches): step 8 resumed
+    from the checkpoint of step 8 gives the uninterrupted run's augmented
+    batch bit for bit and its loss within 1e-3 relative; the pack's seconds
+    and GB, and the step median with the resident fetch and augmentation
+    and without them (pre-made batches), printed beside the ``nvidia-smi``
+    name and power limit.
 11. report: one ``{"kernels": [...]}`` line (each kernel's
     ``launches_by_path`` with ``eval_v2`` / ``eval_v3``, its launches a
-    frame of the eval phase), one latency line (the eval metrics under
-    ``eval``), the ``nvidia-smi`` name and power limit, and last
-    ``{"ok": true, "device": {...}}``.
+    frame of the eval phase, and ``train_config_v2``, its launches in the
+    99 steps of phase 10b), one latency line (the eval metrics under
+    ``eval``, phase 10b's under ``train_config_v2``), the ``nvidia-smi``
+    name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no "ok".
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
+import logging
 import math
 import pathlib
 import shutil
@@ -118,8 +145,26 @@ import time
 import torch
 import torch.nn.functional as F
 
-from realtime_stereo_matcher_tpu_torch import bench, evaluate, frame_profile
+from realtime_stereo_matcher_tpu_torch import (
+    bench,
+    evaluate,
+    frame_profile,
+    train_stereo,
+)
 from realtime_stereo_matcher_tpu_torch.config import load_config
+from realtime_stereo_matcher_tpu_torch.data.device_augment import (
+    N_UNIFORMS,
+    AugmentSpec,
+    apply_augment,
+    draw_params,
+    make_device_augment,
+    step_generator,
+)
+from realtime_stereo_matcher_tpu_torch.data.device_cache import (
+    DeviceResidentScenes,
+    cache_path,
+    pack_synthetic,
+)
 from realtime_stereo_matcher_tpu_torch.data.synthetic import (
     SyntheticBatches,
     SyntheticStereo,
@@ -159,6 +204,7 @@ from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
     refine_max_shifts,
 )
 from realtime_stereo_matcher_tpu_torch.train.loss import build_loss_function
+from realtime_stereo_matcher_tpu_torch.train.optim import onecycle_schedule
 from realtime_stereo_matcher_tpu_torch.train.trainer import (
     create_train_state,
     restore_checkpoint,
@@ -296,6 +342,21 @@ EVAL_BF16_MEDIAN_PX = 1.0
 # 375 x 1242 frames padded to /64
 EVAL_SCENES, EVAL_PIXEL_SCENES, KITTI_PADDED_HW = 40, 3, (384, 1280)
 EVAL_HW = ((320, 448), KITTI_PADDED_HW)
+# the training main path from a committed config: the v2 synthetic config
+# through the train entry point, at its full width and train section; its
+# one cut, 512 scenes resident (0.59 GB) in place of its 4000 (4.59 GB, ~1
+# min of scene generation on the card's host)
+TRAIN_CONFIG = ROOT / "configure" / "stereo_net_v2_synthetic_config.json"
+TRAIN_CONFIG_DATASETS = ["synthetic_512"]
+# 99 steps: the metric logger's first mean row (the trainer's MetricLogger,
+# sum_freq 100) falls on step 98
+TRAIN_CONFIG_STEPS, METRIC_SUM_FREQ = 99, 100
+# resume: 64 scenes, an epoch of 8 batches; the checkpoint of step 8
+RESUME_DATASETS, RESUME_STEP = ["synthetic_64"], 8
+RESUME_LOSS_RTOL = 1e-3
+# the augmentation on the card against the same call on the CPU: images in
+# 255 levels, flow in px (float32 means summed in another order)
+AUG_TOL_IMG, AUG_TOL_FLOW = 1e-2, 1e-4
 # peak memory rate (bytes/s) and dense bf16 tensor-core rate (FLOP/s) from
 # NVIDIA's data sheets, by card name; other cards use the H100 SXM row
 PEAKS = {"H200": (4.8e12, 989e12), "H100": (3.35e12, 989e12)}
@@ -1902,7 +1963,326 @@ def check_eval(device, name: str, per_frame: dict) -> dict:
                 bf16_median_px_kitti=kitti_median)
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# train config: a committed training config through the train entry point
+# ---------------------------------------------------------------------------
+
+
+class _Records(logging.Handler):
+    """Keeps the log records of a run (the trainer says which data path it
+    took, and the pack's size and seconds)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def train_config_file(name: str, **train_changes) -> pathlib.Path:
+    """``TRAIN_CONFIG`` with its ``path`` under ``_runs/<name>`` and
+    ``train_changes`` in its train section, written to ``_runs/<name>.json``
+    (``_runs/`` is gitignored); an earlier run's directory there is
+    removed."""
+    raw = json.loads(TRAIN_CONFIG.read_text())
+    raw["path"] = str(ROOT / "_runs" / name)
+    shutil.rmtree(raw["path"], ignore_errors=True)  # a fresh metric log
+    raw["train"].update(train_changes)
+    out = ROOT / "_runs" / f"{name}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(raw, indent=2))
+    return out
+
+
+def run_train_config(device, config_path, max_steps: int,
+                     on_batch=None, first_step: int = 0) -> dict:
+    """``train_stereo.main`` on ``config_path`` (the bf16 kernel train path)
+    with every step's launches held to ``LAUNCHES_PER_STEP`` and its loss
+    finite; the resident path must be taken.  Returns the losses, the
+    launches, the step times by CUDA events after ``WARMUP_STEPS`` (where
+    the run has more), and the pack's scenes, GB and seconds as the trainer
+    logged them.  ``first_step``: the step a restored checkpoint starts
+    from."""
+    events, launches, losses = [], [], []
+
+    def on_step(step, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        launches.append(dict(_build.LAUNCHES))
+        losses.append(metrics["live_loss"])
+
+    handler = _Records()
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        final = train_stereo.main([f"--exp_config_json={config_path}",
+                                   f"--max_steps={max_steps}",
+                                   f"--device={device}"],
+                                  on_step=on_step, on_batch=on_batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    messages = [r.getMessage() for r in handler.records]
+    resident = [r for r in handler.records
+                if r.msg.startswith("Device-resident dataset:")]
+    if not resident:
+        raise AssertionError(f"{config_path}: the resident path was not "
+                             f"taken: {messages}")
+    scenes, gb, _, pack_s = resident[0].args
+    per_step = [{k: v - prev.get(k, 0) for k, v in cur.items()}
+                for prev, cur in zip([{}] + launches, launches)]
+    for i, counts in enumerate(per_step):
+        if counts != LAUNCHES_PER_STEP:
+            raise AssertionError(f"{config_path} step {i} launches {counts}, "
+                                 f"expected {LAUNCHES_PER_STEP}")
+    loss_values = [float(v) for v in losses]
+    if len(loss_values) != max_steps + 1 - first_step or not all(
+            math.isfinite(v) for v in loss_values):
+        raise AssertionError(f"{config_path} losses {loss_values}")
+    ms = [events[i - 1].elapsed_time(events[i])
+          for i in range(WARMUP_STEPS + 1, len(events))]
+    return dict(final=final, steps=len(loss_values), losses=loss_values,
+                launches=dict(_build.LAUNCHES),
+                launches_per_step=per_step[-1], scenes=scenes,
+                resident_gb=gb, pack_s=pack_s,
+                generated=any(m.startswith("Packed ") for m in messages),
+                step_ms=ms, step_ms_median=statistics.median(ms) if ms else None,
+                seconds=seconds)
+
+
+def check_metric_log(run: dict, cfg) -> dict:
+    """The run's ``scalars.jsonl`` holds the rows the JAX package's logger
+    writes: one a step (its live loss as the step returned it, the
+    schedule's learning rate), and at every push k with k % sum_freq ==
+    sum_freq - 1 the running means, summed over those pushes and divided by
+    sum_freq."""
+    rows = [json.loads(line) for line in (pathlib.Path(cfg.path) / "runs" /
+                                          "scalars.jsonl").read_text().splitlines()]
+    per_step = [r for r in rows if "learning_rate" in r]
+    means = [r for r in rows if "learning_rate" not in r]
+    n, losses = run["steps"], run["losses"]
+    schedule = onecycle_schedule(cfg.train.learn_rate, cfg.train.num_of_steps)
+    if [r["step"] for r in per_step] != list(range(n)):
+        raise AssertionError(f"metric log steps {[r['step'] for r in per_step]}")
+    for r in per_step:
+        if (r["live_loss"] != losses[r["step"]]
+                or r["learning_rate"] != schedule(r["step"])):
+            raise AssertionError(f"metric log row {r}")
+    freq = METRIC_SUM_FREQ
+    want_steps = [k - 1 for k in range(1, n + 1) if k % freq == freq - 1]
+    if [r["step"] for r in means] != want_steps:
+        raise AssertionError(f"mean rows at {[r['step'] for r in means]}, "
+                             f"expected {want_steps}")
+    lo = 0
+    for r in means:
+        want = sum(losses[lo:r["step"] + 1]) / freq
+        if not math.isclose(r["live_loss"], want, rel_tol=1e-12):
+            raise AssertionError(f"mean row {r}, live loss {want}")
+        lo = r["step"] + 1
+    return dict(rows=len(rows), mean_rows=[r["step"] for r in means])
+
+
+def check_augment_on_card(device, cfg) -> dict:
+    """``apply_augment`` on the card against the same call on the CPU, at
+    the config's shapes (8 raw 320 x 448 scenes from the resident fetch,
+    240 x 320 crops), with the same params, both colour branches and the
+    eraser on and off."""
+    packed = pack_synthetic(SyntheticStereo(length=cfg.train.batch_size),
+                            cache_dir=None)
+    resident = DeviceResidentScenes(packed, device=device)
+    b = resident.length
+    raw = resident.fetch(torch.arange(b, device=device))
+    spec = AugmentSpec.from_aug_params(cfg.aug_params(), resident.image_hw)
+    u = torch.rand((b, N_UNIFORMS), generator=step_generator(0, device),
+                   device=device)
+    params = draw_params(spec, u)
+    k = torch.arange(b, device=device)
+    params["asym"], params["eraser_on"] = k % 2 == 1, k // 2 % 2 == 1
+    got = apply_augment(spec, params, *raw)
+    want = apply_augment(spec, {n: t.cpu() for n, t in params.items()},
+                         *(t.cpu() for t in raw))
+    err = [float((g.cpu() - w).abs().max()) for g, w in zip(got, want)]
+    if not (err[0] <= AUG_TOL_IMG and err[1] <= AUG_TOL_IMG
+            and err[2] <= AUG_TOL_FLOW and err[3] == 0.0):
+        raise AssertionError(f"augmentation on the card against the CPU: "
+                             f"max abs err img1, img2, flow, valid {err}")
+    if got[0].shape != (b, *cfg.data.image_size, 3):
+        raise AssertionError(f"augmented shape {tuple(got[0].shape)}")
+    return dict(max_abs_err=dict(zip(("img1", "img2", "flow", "valid"), err)))
+
+
+def check_resume(device) -> dict:
+    """An epoch of 8 batches (64 scenes): the uninterrupted run's step 8
+    against step 8 resumed from the checkpoint of step 8 (an epoch
+    boundary): the same augmented batch, bit for bit, and the loss within
+    ``RESUME_LOSS_RTOL``."""
+    first, again = {}, {}
+
+    def keep(into):
+        def on_batch(step, batch):
+            if step == RESUME_STEP:
+                into[step] = [t.clone() for t in batch]
+        return on_batch
+
+    path_a = train_config_file("chip_smoke_resume_a", datasets=RESUME_DATASETS,
+                               save_checkpoint_frequency=RESUME_STEP)
+    run_a = run_train_config(device, path_a, RESUME_STEP, keep(first))
+    ckpt = (pathlib.Path(load_config(path_a).path) / "checkpoints" /
+            f"{load_config(path_a).name}-epoch-{RESUME_STEP}.ckpt")
+    path_b = train_config_file("chip_smoke_resume_b", datasets=RESUME_DATASETS,
+                               save_checkpoint_frequency=RESUME_STEP,
+                               restore_checkpoint=str(ckpt))
+    run_b = run_train_config(device, path_b, RESUME_STEP, keep(again),
+                             first_step=RESUME_STEP)
+    scenes = int(RESUME_DATASETS[0].split("_")[1])
+    if (run_a["scenes"] != scenes or scenes // TRAIN_B_V23 != RESUME_STEP
+            or sorted(again) != [RESUME_STEP]):
+        raise AssertionError(f"resume runs: {run_a['scenes']} scenes, "
+                             f"steps {sorted(again)}")
+    same = [torch.equal(a, b) for a, b in zip(first[RESUME_STEP],
+                                               again[RESUME_STEP])]
+    loss_a, loss_b = run_a["losses"][RESUME_STEP], run_b["losses"][0]
+    rel = abs(loss_b - loss_a) / abs(loss_a)
+    if not all(same) or not rel <= RESUME_LOSS_RTOL:
+        raise AssertionError(f"resumed step {RESUME_STEP}: batch equal "
+                             f"{same}, loss {loss_b} against {loss_a}")
+    for p in (path_a, path_b):
+        shutil.rmtree(load_config(p).path)
+        p.unlink()
+    return dict(batch_bit_equal=True, loss=loss_a, loss_resumed=loss_b,
+                loss_rel_err=rel)
+
+
+def time_without_augment(device, cfg) -> dict:
+    """The same config's kernel step on pre-made batches (no resident
+    fetch, no augmentation): the step median by CUDA events."""
+    cfg = dataclasses.replace(cfg, path=str(ROOT / "_runs" /
+                                            "chip_smoke_no_augment"))
+    cfg.train = dataclasses.replace(cfg.train, device_augment=False)
+    data = SyntheticBatches(cfg.train.batch_size, tuple(cfg.data.image_size),
+                            n_batches=WARMUP_STEPS + TIMED_STEPS, seed0=SEED,
+                            device=device)
+    events = []
+
+    def on_step(step, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    train(cfg, max_steps=WARMUP_STEPS + TIMED_STEPS - 1, data_loader=data,
+          device=device, on_step=on_step)
+    torch.cuda.synchronize()
+    shutil.rmtree(cfg.path)
+    ms = [events[i - 1].elapsed_time(events[i])
+          for i in range(WARMUP_STEPS + 1, len(events))]
+    return dict(step_ms_median=statistics.median(ms), step_ms=ms)
+
+
+def check_train_config(device, smi: str) -> dict:
+    """Phase "train config": ``TRAIN_CONFIG`` through the train entry point
+    at its full width, its one cut ``TRAIN_CONFIG_DATASETS``; its metric
+    log, the augmentation on the card against the CPU, resume at an epoch
+    boundary, and the step without augmentation."""
+    path = train_config_file("chip_smoke_train_config",
+                             datasets=TRAIN_CONFIG_DATASETS)
+    cfg = load_config(path)
+    if not (cfg.train.device_augment and cfg.model.mixed_precision
+            and cfg.train.fast_kernels == "auto"
+            and (cfg.train.batch_size, tuple(cfg.data.image_size))
+            == (TRAIN_B_V23, TRAIN_HW_V23)):
+        raise AssertionError(f"{TRAIN_CONFIG.name}: not the v2 synthetic "
+                             f"config's train section")
+    caches = [cache_path(SyntheticStereo(length=n))
+              for n in (int(d.split("_")[1])
+                        for d in TRAIN_CONFIG_DATASETS + RESUME_DATASETS)]
+    new_caches = [c for c in caches if not c.exists()]
+    run = run_train_config(device, path, TRAIN_CONFIG_STEPS - 1)
+    log(f"  train config: {TRAIN_CONFIG.name}, datasets "
+        f"{TRAIN_CONFIG_DATASETS}: pack {run['pack_s']:.3f} s "
+        f"({'generated' if run['generated'] else 'from the disk cache'}), "
+        f"{run['scenes']} scenes, {run['resident_gb']:.4f} GB resident; "
+        f"{run['steps']} bf16 steps, launches per step "
+        f"{run['launches_per_step']}, step median "
+        f"{run['step_ms_median']:.3f} ms | {smi}")
+    metric_log = check_metric_log(run, cfg)
+    shutil.rmtree(cfg.path)
+    path.unlink()
+    augment = check_augment_on_card(device, cfg)
+    resume = check_resume(device)
+    plain = time_without_augment(device, cfg)
+    for c in new_caches:
+        c.unlink(missing_ok=True)
+    log(f"  train config: step median with the resident fetch and "
+        f"augmentation {run['step_ms_median']:.3f} ms, without (pre-made "
+        f"batches) {plain['step_ms_median']:.3f} ms | {smi}")
+    log(f"  train config: metric log {json.dumps(metric_log)}; augmentation "
+        f"on the card against the CPU {json.dumps(augment)}; resume "
+        f"{json.dumps(resume)}")
+    return dict(run, final=None, metric_log=metric_log, augment=augment,
+                resume=resume, step_ms_median_without_augment=plain[
+                    "step_ms_median"], step_ms_without_augment=plain["step_ms"])
+
+
+def profile_augment(device) -> dict:
+    """What the resident path adds to a step, under the profiler: the fetch
+    of 8 scenes by index and their augmentation to the config's crops --
+    device ms and launches per step."""
+    cfg = load_config(TRAIN_CONFIG)
+    packed = pack_synthetic(SyntheticStereo(length=cfg.train.batch_size),
+                            cache_dir=None)
+    resident = DeviceResidentScenes(packed, device=device)
+    spec = AugmentSpec.from_aug_params(cfg.aug_params(), resident.image_hw)
+    augment = make_device_augment(spec)
+    idx = torch.arange(resident.length, device=device)
+    prof = frame_profile.profile_device(
+        lambda: augment(0, *resident.fetch(idx)), 5)
+    return dict(device_ms=prof["device_ms_per_frame"],
+                span_ms=prof["span_ms_per_frame"],
+                launches=sum(g["launches_per_frame"]
+                             for g in prof["groups"].values()))
+
+
+def time_train_config(device, smi: str, max_steps: int) -> None:
+    """``--train-config-steps n``: ``TRAIN_CONFIG`` as committed (its
+    ``synthetic_4000`` resident, 4.59 GB; its train section; only its
+    ``path`` moved under ``_runs/``) through the train entry point for
+    n + 1 steps, held as phase "train config" holds its run (resident path,
+    ``LAUNCHES_PER_STEP`` every step, finite losses).  Prints one JSON line:
+    the pack's seconds (scene generation and the disk cache's write, or its
+    read) and GB, the step median and min by CUDA events after the warm-up
+    steps, the run's seconds, and the ``nvidia-smi`` name and power limit."""
+    path = train_config_file("chip_smoke_train_config_full")
+    run = run_train_config(device, path, max_steps)
+    shutil.rmtree(load_config(path).path)
+    path.unlink()
+    log(json.dumps({
+        "config": str(TRAIN_CONFIG.relative_to(ROOT)),
+        "scenes": run["scenes"], "resident_gb": run["resident_gb"],
+        "pack_s": run["pack_s"], "pack_generated": run["generated"],
+        "steps": run["steps"], "step_ms_median": run["step_ms_median"],
+        "step_ms_min": min(run["step_ms"]), "run_s": run["seconds"],
+        "launches_per_step": run["launches_per_step"],
+        "loss_first_last": [run["losses"][0], run["losses"][-1]],
+        "nvidia_smi": smi}))
+    log(smi)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--train-config-steps", type=int, default=None,
+                        metavar="N",
+                        help="run only the committed v2 synthetic config, "
+                             "unmodified, for N + 1 steps, and time it")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -1920,6 +2300,9 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     log("set torch.backends.cudnn.allow_tf32 = False, "
         "torch.backends.cuda.matmul.allow_tf32 = False")
+    if args.train_config_steps is not None:
+        time_train_config(device, smi, args.train_config_steps)
+        return 0
     log(f"bounds from peaks {peaks[0]:.3g} B/s, {peaks[1]:.3g} bf16 FLOP/s")
 
     with Phase("build"):
@@ -1975,6 +2358,8 @@ def main() -> int:
         eval_worst = check_eval_kernels(device)
         eval_v2 = check_eval(device, "v2", LAUNCHES_PER_FRAME)
         eval_v3 = check_eval(device, "v3", LAUNCHES_PER_FRAME_V3)
+    with Phase("train config"):
+        train_config = check_train_config(device, smi)
     # last: a profiler session can leave per-launch tracing costs on the
     # host, which would slow the frames and steps timed above
     with Phase("narrow routes"):
@@ -1982,6 +2367,10 @@ def main() -> int:
     with Phase("K7 profile"):
         v2_rows["conv3x3_s2"]["device_ms"] = profile_k7(device)
         log(json.dumps({"k7_device_ms": v2_rows["conv3x3_s2"]["device_ms"]}))
+    with Phase("augment profile"):
+        train_config["augment_profile"] = profile_augment(device)
+        log(f"  train config: resident fetch + augmentation per step "
+            f"{json.dumps(train_config['augment_profile'])} | {smi}")
 
     rows["dw_reduce"] = train_rows["dw_reduce"]
     rows["fused_conv4x4_s2"] = v3_rows["fused_conv4x4_s2"]
@@ -2038,7 +2427,8 @@ def main() -> int:
     paths = {"train_run": train_result, "infer_frame": model_result,
              "infer_frame_v2": v2_result, "infer_frame_v3": v3_result,
              "train_run_v2": train_v2, "train_run_v3": train_v3,
-             "eval_v2": eval_v2, "eval_v3": eval_v3}
+             "eval_v2": eval_v2, "eval_v3": eval_v3,
+             "train_config_v2": train_config}
     kernels = []
     for name, row in rows.items():
         by_path = {p: r["launches"].get(name, 0) for p, r in paths.items()}
@@ -2098,6 +2488,8 @@ def main() -> int:
                     "train": train_result, "train_v2": train_v2,
                     "train_v3": train_v3,
                     "eval": {"v2": eval_v2, "v3": eval_v3},
+                    "train_config_v2": {k: v for k, v in train_config.items()
+                                        if k not in ("losses", "final")},
                     "autograd_err": {" ".join(k): v
                                      for k, v in grad_worst.items()},
                     "nvidia_smi": smi}))

@@ -38,9 +38,10 @@ class TrainConfig:
     # when the model and crop support it; "on" raises where they do not
     fast_kernels: str = "auto"
     # pin every BatchNorm to eval mode while training -- the reference's
-    # dormant freeze_bn (train_stereo.py:121-124); not ported yet
+    # dormant freeze_bn (train_stereo.py:121-124), train/freeze.py
     freeze_bn: bool = False
-    # augment on the device inside the train step; not ported yet
+    # hold the scenes on the device and augment there inside the train step
+    # (data/device_cache.py, data/device_augment.py)
     device_augment: bool = False
 
 

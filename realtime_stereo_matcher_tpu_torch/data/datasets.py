@@ -1,9 +1,9 @@
-"""Stereo datasets (the readers of the JAX package's framework-free
-``realtime_stereo_matcher_tpu/data/datasets.py``, without its host
-augmentors; reference dataset/stereo_datasets.py).
+"""Stereo datasets (port of the JAX package's framework-free
+``realtime_stereo_matcher_tpu/data/datasets.py``; reference
+dataset/stereo_datasets.py).
 
-Index-based map-style datasets producing NHWC numpy samples for
-evaluation.  Sample layout (vs. the reference's NCHW torch tensors):
+Index-based map-style datasets producing NHWC numpy samples.  Sample
+layout (vs. the reference's NCHW torch tensors):
 
     (files, img1 (H,W,3) f32, img2 (H,W,3) f32, flow (H,W,1) f32, valid (H,W) f32)
 
@@ -11,14 +11,13 @@ Disparity is converted to **negative horizontal flow** on read
 (reference :78), the repo-wide sign convention.
 
 Dataset roots resolve as ``<root>/<DatasetDir>``, where root comes from the
-``RSM_DATA_ROOT`` env var or the reference's hard-coded
-``/mnt/data/workspace/datasets``.
+``RSM_DATA_ROOT`` env var, the config's ``data.dataset_root``, or the
+reference's hard-coded ``/mnt/data/workspace/datasets``.
 
-Evaluation builds every dataset with ``aug_params={}`` (no crop, so the
-JAX package builds no augmentor either).  Training augmentation
-(``crop_size``, ``img_pad``) and ``build_train_dataset`` come with the
-trainer that reads these datasets (ROADMAP.md); until then such
-``aug_params`` raise.
+Training builds them with the config's ``aug_params`` (a crop: the host
+augmentors of ``data/augment.py``; ``img_pad``), evaluation with
+``aug_params={}`` (no augmentor).  :func:`build_train_dataset` concatenates
+the config's ``train.datasets``.
 """
 
 from __future__ import annotations
@@ -33,27 +32,52 @@ from pathlib import Path
 import numpy as np
 
 from realtime_stereo_matcher_tpu_torch.data import frame_io
+from realtime_stereo_matcher_tpu_torch.data.augment import (
+    FlowAugmentor,
+    SparseFlowAugmentor,
+)
 
 DEFAULT_ROOT = os.environ.get("RSM_DATA_ROOT", "/mnt/data/workspace/datasets")
 
 
 class StereoDataset:
-    """Base dataset (reference stereo_datasets.py:21-126), unaugmented."""
+    """Base dataset (reference stereo_datasets.py:21-126)."""
 
     def __init__(self, aug_params=None, sparse=False, reader=None):
-        if aug_params:
-            raise NotImplementedError(
-                f"host augmentation ({sorted(aug_params)}) is not ported yet; "
-                f"evaluation passes aug_params={{}}")
+        self.augmentor = None
         self.sparse = sparse
+        self.img_pad = (aug_params.pop("img_pad", None)
+                        if aug_params is not None else None)
+        if aug_params is not None and "crop_size" in aug_params:
+            if sparse:
+                self.augmentor = SparseFlowAugmentor(**aug_params)
+            else:
+                self.augmentor = FlowAugmentor(**aug_params)
+
         self.disparity_reader = reader if reader is not None else frame_io.read_gen
         self.is_test = False
+        # image output dtype: float32 by default; the device-augment path
+        # sets uint8 to halve host->device transfer (data/device_augment.py)
+        self.out_dtype = np.float32
         self.flow_list = []
         self.disparity_list = []
         self.image_list = []
         self.extra_info = []
 
+    def seed(self, seed):
+        """Reseed the augmentor (per-worker determinism, reference :56-62)."""
+        if self.augmentor is not None:
+            self.augmentor.seed(seed)
+
+    def get(self, index, rng=None):
+        """Like __getitem__ but with an explicit augmentation RNG, so the
+        threaded loader is deterministic regardless of worker scheduling."""
+        return self._get(index, rng)
+
     def __getitem__(self, index):
+        return self._get(index, None)
+
+    def _get(self, index, rng):
         if self.is_test:
             img1 = np.array(frame_io.read_gen(self.image_list[index][0]))
             img2 = np.array(frame_io.read_gen(self.image_list[index][1]))
@@ -81,14 +105,28 @@ class StereoDataset:
             img1 = img1[..., :3]
             img2 = img2[..., :3]
 
-        img1 = img1.astype(np.float32)
-        img2 = img2.astype(np.float32)
+        if self.augmentor is not None:
+            if self.sparse:
+                img1, img2, flow, valid = self.augmentor(img1, img2, flow,
+                                                         valid, rng=rng)
+            else:
+                img1, img2, flow = self.augmentor(img1, img2, flow, rng=rng)
+
+        img1 = img1.astype(self.out_dtype)
+        img2 = img2.astype(self.out_dtype)
+        flow = flow.astype(np.float32)
 
         if self.sparse:
             valid = np.asarray(valid, np.float32)
         else:
             valid = ((np.abs(flow[..., 0]) < 512)
                      & (np.abs(flow[..., 1]) < 512)).astype(np.float32)
+
+        if self.img_pad is not None:
+            pad_h, pad_w = self.img_pad
+            pads = [(pad_h, pad_h), (pad_w, pad_w), (0, 0)]
+            img1 = np.pad(img1, pads)
+            img2 = np.pad(img2, pads)
 
         flow = flow[..., :1]
         return (self.image_list[index] + [self.disparity_list[index]],
@@ -119,6 +157,10 @@ class ConcatDataset:
                 self.datasets.append(d)
         self._lens = [len(d) for d in self.datasets]
 
+    def seed(self, seed):
+        for i, d in enumerate(self.datasets):
+            d.seed(seed + i)
+
     def __len__(self):
         return sum(self._lens)
 
@@ -126,9 +168,12 @@ class ConcatDataset:
         return ConcatDataset([self, other])
 
     def __getitem__(self, index):
+        return self.get(index, None)
+
+    def get(self, index, rng=None):
         for d, n in zip(self.datasets, self._lens):
             if index < n:
-                return d[index]
+                return d.get(index, rng) if hasattr(d, "get") else d[index]
             index -= n
         raise IndexError(index)
 
@@ -319,3 +364,68 @@ class Middlebury(StereoDataset):
             for img1, img2, disp in zip(image1_list, image2_list, disp_list):
                 self.image_list += [[img1, img2]]
                 self.disparity_list += [disp]
+
+
+def build_train_dataset(exp_config, *, raw=False) -> ConcatDataset | StereoDataset:
+    """Concatenate the configured training datasets
+    (reference fetch_dataloader, stereo_datasets.py:411-482).
+
+    ``raw=True`` builds the datasets without host augmentors (full-size
+    samples), for the on-device augmentation path (data/device_augment.py).
+    """
+    from realtime_stereo_matcher_tpu_torch.config import ExperimentConfig
+
+    assert isinstance(exp_config, ExperimentConfig)
+    aug_params = None if raw else exp_config.aug_params()
+    root = (exp_config.data.dataset_root or None) if exp_config.data else None
+
+    def sub(name):
+        return osp.join(root, name) if root else None
+
+    def cp():
+        return None if aug_params is None else dict(aug_params)
+
+    train_dataset = None
+    for dataset_name in exp_config.train.datasets:
+        if dataset_name.startswith("middlebury_"):
+            new_dataset = Middlebury(cp(), root=sub("Middlebury"),
+                                     split=dataset_name.replace("middlebury_", ""))
+        elif dataset_name == "sceneflow/things":
+            new_dataset = SceneFlowDatasets(
+                cp(), root=sub("SceneFlow"),
+                dstype="frames_cleanpass", subsets=["things"])
+        elif dataset_name == "sceneflow/driving":
+            new_dataset = SceneFlowDatasets(
+                cp(), root=sub("SceneFlow"),
+                dstype="frames_cleanpass", subsets=["driving"])
+        elif "kitti" in dataset_name:
+            new_dataset = KITTI(cp(), root=sub("KITTI"))
+        elif dataset_name == "sintel_stereo":
+            new_dataset = SintelStereo(cp(),
+                                       root=sub("SintelStereo")) * 140
+        elif dataset_name == "falling_things":
+            new_dataset = FallingThings(cp(),
+                                        root=sub("FallingThings")) * 5
+        elif dataset_name.startswith("tartan_air"):
+            new_dataset = TartanAir(cp(), root=root,
+                                    keywords=dataset_name.split("_")[2:])
+        elif dataset_name == "eth3d":
+            new_dataset = ETH3D(cp(), root=sub("ETH3D"))
+        elif dataset_name.startswith("synthetic"):
+            # "synthetic" or "synthetic_<N>": procedural scenes with exact GT
+            # (data/synthetic.py); holdout seeds >= 10**6 are reserved for
+            # validate_synthetic
+            from realtime_stereo_matcher_tpu_torch.data.synthetic import (
+                SyntheticStereo,
+            )
+
+            parts = dataset_name.split("_")
+            length = int(parts[1]) if len(parts) > 1 else 2000
+            new_dataset = SyntheticStereo(cp(), length=length)
+        else:
+            raise ValueError(f"unknown training dataset: {dataset_name}")
+        logging.info("Adding %d samples from %s", len(new_dataset), dataset_name)
+        train_dataset = (new_dataset if train_dataset is None
+                         else train_dataset + new_dataset)
+    logging.info("Training with %d image pairs", len(train_dataset))
+    return train_dataset

@@ -17,7 +17,8 @@ here (the card's machine has no cv2).  :class:`SyntheticStereo` is the
 map-style dataset of those scenes (the JAX package's, with the same
 ``seed0`` partition: held-out seeds from 10**6 are ``validate_synthetic``'s)
 and :class:`SyntheticBatches` serves fixed-shape training batches, both in
-the repo's sample contract: flow = -disparity, NHWC float32.
+the repo's sample contract: flow = -disparity, NHWC float32 (uint8 images
+where a dataset's ``out_dtype`` asks for them).
 """
 
 from __future__ import annotations
@@ -124,7 +125,9 @@ class SyntheticStereo(StereoDataset):
     """Map-style procedural dataset (contract of data/datasets.py).
 
     ``seed0`` partitions scenes: disjoint ranges give disjoint train/holdout
-    sets.  Unaugmented, as evaluation reads it (``data/datasets.py``).
+    sets.  ``aug_params`` with a crop gives the dense host augmentor
+    (``data/augment.py`` ``FlowAugmentor``), as the file datasets have it;
+    evaluation reads the scenes unaugmented (``aug_params={}``).
     """
 
     def __init__(self, aug_params=None, *, length: int = 2000,
@@ -135,7 +138,8 @@ class SyntheticStereo(StereoDataset):
         self.image_hw = tuple(image_hw)
         self.max_disp = float(max_disp)
         # scenes are deterministic per (seed, index): memoize raw scenes
-        # (~2 MB each at 320 x 448)
+        # (~2 MB each at 320 x 448).  Plain dict writes are atomic under the
+        # GIL; loader threads racing on one index make the same scene twice
         self._cache: dict = {}
         # base-class bookkeeping so __mul__/ConcatDataset len() work
         self.image_list = [[f"synthetic://{seed0 + i}/left",
@@ -146,15 +150,25 @@ class SyntheticStereo(StereoDataset):
         self.extra_info = [[f"synthetic://{seed0 + i}"]
                            for i in range(self.length)]
 
-    def __getitem__(self, index):
+    def _get(self, index, rng):
         index = index % self.length
         if index not in self._cache:
             self._cache[index] = make_scene(
                 self.seed0 + index, *self.image_hw, max_disp=self.max_disp)
         img1, img2, disp, valid = self._cache[index]
-        flow = -disp[..., None].astype(np.float32)
+        flow = np.stack([-disp, np.zeros_like(disp)], axis=-1)
+
+        if self.augmentor is not None:
+            # the augmentor takes uint8 images, as from the file datasets;
+            # crop and flip invalidate the geometric mask, which is
+            # recomputed as the dense base path does (datasets.py _get)
+            img1, img2, flow = self.augmentor(img1, img2, flow, rng=rng)
+            valid = ((np.abs(flow[..., 0]) < 512)
+                     & (np.abs(flow[..., 1]) < 512)).astype(np.float32)
+
+        flow = flow[..., :1].astype(np.float32)
         return (self.image_list[index] + [self.disparity_list[index]],
-                img1.astype(np.float32), img2.astype(np.float32), flow,
+                img1.astype(self.out_dtype), img2.astype(self.out_dtype), flow,
                 np.asarray(valid, np.float32))
 
 

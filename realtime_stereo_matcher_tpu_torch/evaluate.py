@@ -32,6 +32,7 @@ from realtime_stereo_matcher_tpu_torch.eval.validators import (
 from realtime_stereo_matcher_tpu_torch.models import build_model, is_neural
 from realtime_stereo_matcher_tpu_torch.models.checkpoint import load_weights
 from realtime_stereo_matcher_tpu_torch.train.trainer import count_parameters
+from realtime_stereo_matcher_tpu_torch.utils.logger import setup_basic_logging
 
 FAST = {"auto": "auto", "on": True, "off": False}
 
@@ -88,10 +89,7 @@ def build_runner(exp_config, model_chkpt_file: str, *, fast="auto",
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s %(levelname)-8s [%(filename)s:%(lineno)d] %(message)s",
-    )
+    setup_basic_logging()
     exp_config = load_config(args.exp_config_json)
     runner = build_runner(exp_config, args.model_chkpt_file,
                           fast=FAST[args.fast], device=args.device,

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import glob
-import logging
 import os
 import time
 
@@ -33,6 +32,7 @@ from realtime_stereo_matcher_tpu_torch.config import load_config
 from realtime_stereo_matcher_tpu_torch.evaluate import FAST, build_runner
 from realtime_stereo_matcher_tpu_torch.ops import InputPadder
 from realtime_stereo_matcher_tpu_torch.utils.colorize import colorize_2d_matrix
+from realtime_stereo_matcher_tpu_torch.utils.logger import setup_basic_logging
 from realtime_stereo_matcher_tpu_torch.utils.pfm import write_pfm
 
 
@@ -57,10 +57,7 @@ def parse_args(argv=None):
 def main(argv=None) -> list[str]:
     """Returns the paths of the PFM files written."""
     args = parse_args(argv)
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s %(levelname)-8s [%(filename)s:%(lineno)d] %(message)s",
-    )
+    setup_basic_logging()
     from PIL import Image
 
     exp_config = load_config(args.exp_config_json)

@@ -1,2 +1,2 @@
-"""Training: loss, optimizer, train-start init and the trainer (port of
-``realtime_stereo_matcher_tpu/train/``)."""
+"""Training: loss, optimizer, train-start init, BatchNorm freezing and the
+trainer (port of ``realtime_stereo_matcher_tpu/train/``)."""

@@ -1,2 +1,2 @@
-"""Host utilities of the port: PFM files, disparity colouring and forward
-latency."""
+"""Host utilities of the port: PFM files, disparity colouring, forward
+latency and the training metric logger."""

@@ -8,11 +8,12 @@ package's function and to its counterpart in the port:
   Middlebury decoding): the same arrays, exactly;
 * ``data/datasets.py``: every dataset class, unaugmented as evaluation
   builds it, on temporary trees laid out as tests/test_dataset_families.py
-  and tests/test_eval.py lay them out, the same samples, exactly; training
-  ``aug_params`` (a crop, a pad) raise in the port, which has no host
-  augmentors yet;
+  and tests/test_eval.py lay them out, the same samples, exactly; with
+  training ``aug_params`` (a crop: the host augmentors; a pad) and the same
+  per-sample rng, the same samples, exactly;
 * ``SyntheticStereo``, sample for sample: names, flow and validity exact,
-  images within one level (the port's numpy resize against cv2's);
+  images within one level (the port's numpy scenes against cv2's); with
+  the host augmentor on the same scenes, the same samples, exactly;
 * ``models/checkpoint.py`` on each file format, ``utils/timing.py``, and
   ``models.is_neural`` on every repo config.
 
@@ -51,6 +52,7 @@ from realtime_stereo_matcher_tpu.data import datasets as jax_datasets  # noqa: E
 from realtime_stereo_matcher_tpu.data import frame_io as jax_frame_io  # noqa: E402
 from realtime_stereo_matcher_tpu.data.synthetic import (  # noqa: E402
     SyntheticStereo as JaxSyntheticStereo,
+    make_scene as jax_make_scene,
 )
 from realtime_stereo_matcher_tpu.eval import (  # noqa: E402
     validators as jax_validators,
@@ -415,11 +417,19 @@ def test_dataset_classes_match_jax(tmp_path, rng, family):
     _same_samples(getattr(datasets, cls)(aug_params={}, **kw),
                   getattr(jax_datasets, cls)(aug_params={}, **kw))
     _same_samples(port_ds * 2 + port_ds, jax_ds * 2 + jax_ds)
-    # training augmentation is not ported: a crop or a pad raises
+    # training augmentation (a crop: the host augmentors; a pad), with the
+    # same per-sample rng in both packages: the same samples, bit for bit
     for aug in (dict(crop_size=(48, 64), min_scale=0.0, max_scale=0.2),
                 dict(img_pad=(2, 3))):
-        with pytest.raises(NotImplementedError, match="augmentation"):
-            getattr(datasets, cls)(aug_params=aug, **kw)
+        port_aug = getattr(datasets, cls)(aug_params=dict(aug), **kw)
+        jax_aug = getattr(jax_datasets, cls)(aug_params=dict(aug), **kw)
+        for i in range(len(jax_aug)):
+            got = port_aug.get(i, np.random.default_rng(i))
+            want = jax_aug.get(i, np.random.default_rng(i))
+            assert got[0] == want[0]
+            for g, w in zip(got[1:], want[1:]):
+                assert g.dtype == w.dtype and g.shape == w.shape
+                np.testing.assert_array_equal(g, w)
 
 
 def test_synthetic_stereo_matches_jax():
@@ -442,8 +452,21 @@ def test_synthetic_stereo_matches_jax():
             assert diff.max() <= 1.0 and (diff > 0).mean() <= 1e-3
     assert port_ds.extra_info == jax_ds.extra_info
     assert len(port_ds * 3) == len(jax_ds * 3) == 12
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        SyntheticStereo(aug_params=dict(crop_size=(48, 64)), length=1)
+    # with the host augmentor, on the JAX package's scenes and the same
+    # per-sample rng: the same crops, bit for bit (the port's resize
+    # computes cv2's)
+    aug = dict(crop_size=(48, 64), min_scale=-0.2, max_scale=0.4)
+    port_aug = SyntheticStereo(**dict(kw, aug_params=dict(aug)))
+    jax_aug = JaxSyntheticStereo(**dict(kw, aug_params=dict(aug)))
+    port_aug._cache = {i: jax_make_scene(10 ** 6 + i, 96, 128, max_disp=48.0)
+                       for i in range(4)}
+    for i in range(4):
+        got = port_aug.get(i, np.random.default_rng(i))
+        want = jax_aug.get(i, np.random.default_rng(i))
+        assert got[0] == want[0]
+        for g, w in zip(got[1:], want[1:]):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
 
 
 @pytest.mark.parametrize("hw", [(64, 64), (65, 130), (96, 128), (320, 448),

@@ -93,12 +93,25 @@ EVAL_MODULES = (
 )
 
 
+# the training-data slice's modules, named for the same reason
+TRAIN_DATA_MODULES = (
+    "realtime_stereo_matcher_tpu_torch.data.augment",
+    "realtime_stereo_matcher_tpu_torch.data.device_augment",
+    "realtime_stereo_matcher_tpu_torch.data.device_cache",
+    "realtime_stereo_matcher_tpu_torch.data.loader",
+    "realtime_stereo_matcher_tpu_torch.train.freeze",
+    "realtime_stereo_matcher_tpu_torch.train_stereo",
+    "realtime_stereo_matcher_tpu_torch.utils.logger",
+)
+
+
 def test_imports_with_jax_blocked():
     """Every port module and chip_smoke import with the banned names made
     unimportable, so no import reaches them, directly or transitively."""
     assert set(TRAIN_MODULES) <= set(_module_names())
     assert set(V3_MODULES) <= set(_module_names())
     assert set(EVAL_MODULES) <= set(_module_names())
+    assert set(TRAIN_DATA_MODULES) <= set(_module_names())
     code = (
         "import importlib, sys\n"
         f"banned = {BANNED!r}\n"
@@ -139,6 +152,44 @@ def test_synthetic_eval_needs_no_pil_or_cv2():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "epe " in proc.stdout
+
+
+def test_training_data_path_needs_no_pil_cv2_or_tensorboard(tmp_path):
+    """With JAX, PIL, cv2 and TensorBoard unimportable, the training-data
+    modules import and run on the CPU: a synthetic pack held on the
+    device, an index batch augmented there, the host augmentor (its own
+    resize) and the loader over augmented scenes, and the metric logger,
+    which then writes only its JSONL file."""
+    code = (
+        "import importlib, sys\n"
+        f"for name in {BANNED + ('PIL', 'cv2', 'torch.utils.tensorboard')!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {TRAIN_DATA_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "import numpy as np, torch\n"
+        "from realtime_stereo_matcher_tpu_torch.data import (\n"
+        "    device_augment, device_cache, loader, synthetic)\n"
+        "from realtime_stereo_matcher_tpu_torch.utils.logger import "
+        "MetricLogger\n"
+        "ds = synthetic.SyntheticStereo(length=2, image_hw=(48, 64))\n"
+        "res = device_cache.DeviceResidentScenes(\n"
+        "    device_cache.pack_synthetic(ds, cache_dir=None), device='cpu')\n"
+        "spec = device_augment.AugmentSpec(src_hw=(48, 64), "
+        "crop_size=(32, 40))\n"
+        "out = device_augment.make_device_augment(spec)(\n"
+        "    0, *res.fetch(torch.tensor([1, 0])))\n"
+        "aug = synthetic.SyntheticStereo(dict(crop_size=(32, 40)), length=2,"
+        " image_hw=(48, 64))\n"
+        "batch = next(iter(loader.StereoDataLoader(aug, 2, num_workers=1)))\n"
+        f"log = MetricLogger({str(tmp_path)!r}, sum_freq=1)\n"
+        "log.push({'live_loss': 1.0}, step=0)\n"
+        "log.close()\n"
+        "print('shapes', tuple(out[0].shape), batch[1].shape, log._tb)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "shapes (2, 32, 40, 3) (2, 32, 40, 3) None" in proc.stdout
+    assert (tmp_path / "scalars.jsonl").read_text().count("\n") == 1
 
 
 def _run_smoke(cwd):

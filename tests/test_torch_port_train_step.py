@@ -16,7 +16,8 @@ package, on the CPU.
 * the train-start init in distribution against the JAX package's;
 * ``load_config`` against the JAX package's on every reference config;
 * ``train()`` for 2 steps at 32 x 64 on the kernel path, a checkpoint round
-  trip, and ``fast_kernels="on"`` refusing a model the kernels do not serve.
+  trip, ``fast_kernels="on"`` refusing a model the kernels do not serve, and
+  ``train()`` building its own loader from ``train.datasets``.
 """
 
 import dataclasses
@@ -295,9 +296,15 @@ def test_fast_kernels_on_refuses_an_unsupported_model(tmp_path):
 
 
 def test_train_needs_a_data_loader_and_cuda_by_default(tmp_path):
+    # without a data_loader, train() builds one from train.datasets (host
+    # augmentation here: the config has no device_augment)
     cfg = _tiny_config(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train(cfg, max_steps=1, device="cpu")
+    cfg.train.datasets = ["synthetic_2"]
+    seen = []
+    train(cfg, max_steps=1, device="cpu",
+          on_batch=lambda s, b: seen.append(tuple(t.shape for t in b)))
+    assert seen == [((2, 32, 64, 3), (2, 32, 64, 3), (2, 32, 64, 1),
+                     (2, 32, 64))] * 2
     if not torch.cuda.is_available():
         data = SyntheticBatches(2, (32, 64), max_disp=16.0)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
