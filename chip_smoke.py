@@ -118,10 +118,33 @@ imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
     and GB, and the step median with the resident fetch and augmentation
     and without them (pre-made batches), printed beside the ``nvidia-smi``
     name and power limit.
+10c. v4, dispnetc: the two families without a kernel path (none in the
+    JAX package either), each from its repo config
+    (``configure/stereo_net_config_v4.json``, ``disp_net_c_config.json``)
+    and its trained weights (``held_out.json``): ``evaluate.main`` on the
+    40 held-out scenes (the plain forward, bf16 autocast: the main path)
+    and the plain float32 model, held to the JAX package's EPE within 1e-4
+    px and D1 within 0.01 points, bf16 to float32 within 0.05 px and 0.2
+    points, with FPS; a seeded float32 forward (the train-start init) at
+    128 x 192 on the card against the CPU, median |d| under 1e-3 px; 1280
+    x 720 frames of the trained model, float32 and bf16, min and median
+    over 8 after 2 by CUDA events, bf16 within 1 px median of float32; the
+    first training step at the config's train section (V4 at batch 2: its
+    CPU steps at 6 take minutes) on the card against the CPU's float64
+    step, float64 within 1e-4 (loss), 1e-3 (gradients, relative L2) and
+    1e-4 (running stats), float32 within those or 16 x the float32 floor
+    (the CPU's float32 step, the card's on the batch reversed: a float32
+    step of these models amplifies rounding); ``train()`` in bf16 at the
+    train section, step median and min over 8 after 2; the committed
+    synthetic config through ``train_stereo.main`` (64 scenes resident),
+    20 steps, its metric log and a falling or flat loss.  No hand-written
+    kernel may launch in either phase (``python3 chip_smoke.py --only v4
+    dispnetc`` runs these phases alone).
 11. report: one ``{"kernels": [...]}`` line (each kernel's
     ``launches_by_path`` with ``eval_v2`` / ``eval_v3``, its launches a
-    frame of the eval phase, and ``train_config_v2``, its launches in the
-    99 steps of phase 10b), one latency line (the eval metrics under
+    frame of the eval phase, ``train_config_v2``, its launches in the 99
+    steps of phase 10b, and ``v4`` / ``dispnetc``, 0 in phase 10c), one
+    latency line (the eval metrics under
     ``eval``, phase 10b's under ``train_config_v2``), the ``nvidia-smi``
     name and power limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -131,6 +154,7 @@ Any failed check raises, so the script exits non-zero and prints no "ok".
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import logging
@@ -1980,12 +2004,13 @@ class _Records(logging.Handler):
         self.records.append(record)
 
 
-def train_config_file(name: str, **train_changes) -> pathlib.Path:
-    """``TRAIN_CONFIG`` with its ``path`` under ``_runs/<name>`` and
+def train_config_file(name: str, config: pathlib.Path = TRAIN_CONFIG,
+                      **train_changes) -> pathlib.Path:
+    """``config`` with its ``path`` under ``_runs/<name>`` and
     ``train_changes`` in its train section, written to ``_runs/<name>.json``
     (``_runs/`` is gitignored); an earlier run's directory there is
     removed."""
-    raw = json.loads(TRAIN_CONFIG.read_text())
+    raw = json.loads(config.read_text())
     raw["path"] = str(ROOT / "_runs" / name)
     shutil.rmtree(raw["path"], ignore_errors=True)  # a fresh metric log
     raw["train"].update(train_changes)
@@ -1996,10 +2021,12 @@ def train_config_file(name: str, **train_changes) -> pathlib.Path:
 
 
 def run_train_config(device, config_path, max_steps: int,
-                     on_batch=None, first_step: int = 0) -> dict:
+                     on_batch=None, first_step: int = 0,
+                     expected: dict = LAUNCHES_PER_STEP) -> dict:
     """``train_stereo.main`` on ``config_path`` (the bf16 kernel train path)
-    with every step's launches held to ``LAUNCHES_PER_STEP`` and its loss
-    finite; the resident path must be taken.  Returns the losses, the
+    with every step's launches held to ``expected`` (``LAUNCHES_PER_STEP``;
+    none on the plain step of V4 and DispNetC) and its loss finite; the
+    resident path must be taken.  Returns the losses, the
     launches, the step times by CUDA events after ``WARMUP_STEPS`` (where
     the run has more), and the pack's scenes, GB and seconds as the trainer
     logged them.  ``first_step``: the step a restored checkpoint starts
@@ -2041,9 +2068,9 @@ def run_train_config(device, config_path, max_steps: int,
     per_step = [{k: v - prev.get(k, 0) for k, v in cur.items()}
                 for prev, cur in zip([{}] + launches, launches)]
     for i, counts in enumerate(per_step):
-        if counts != LAUNCHES_PER_STEP:
+        if counts != expected:
             raise AssertionError(f"{config_path} step {i} launches {counts}, "
-                                 f"expected {LAUNCHES_PER_STEP}")
+                                 f"expected {expected}")
     loss_values = [float(v) for v in losses]
     if len(loss_values) != max_steps + 1 - first_step or not all(
             math.isfinite(v) for v in loss_values):
@@ -2276,12 +2303,334 @@ def time_train_config(device, smi: str, max_steps: int) -> None:
     log(smi)
 
 
+# ---------------------------------------------------------------------------
+# v4, dispnetc: the two model families without a kernel path
+# ---------------------------------------------------------------------------
+
+# each family's repo config (its seeded full-width model and train section)
+# and its committed synthetic training config
+NEW_MODELS = {
+    "v4": dict(config=ROOT / "configure" / "stereo_net_config_v4.json",
+               train_config=(ROOT / "configure"
+                             / "stereo_net_v4_synthetic_config.json")),
+    "dispnetc": dict(config=ROOT / "configure" / "disp_net_c_config.json",
+                     train_config=(ROOT / "configure"
+                                   / "disp_net_c_synthetic_config.json")),
+}
+# the plain float32 model (TF32 off) against the JAX package's float32
+# held-out EPE (px) and D1 (points); bf16 autocast against float32
+NEW_EVAL_EPE_TOL, NEW_EVAL_D1_TOL = 1e-4, 0.01
+# one seeded float32 forward on the card against the CPU: median |d| (px)
+CARD_CPU_HW, CARD_CPU_MEDIAN_PX = (128, 192), 1e-3
+# the first float32 training step on the card against the CPU
+STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_STAT_TOL = 1e-4, 1e-3, 1e-4
+# the step on the card against the CPU, held to the CPU's float64 step: V4
+# at batch 2 (its CPU steps at batch 6 take ~2.5 min on the 8 cores of the
+# card's host, at 2 ~30 s), DispNetC at its config's batch
+STEP_BATCH = {"v4": 2}
+# the float32 step against the float32 floor (see ``_step_on_card_and_cpu``;
+# the bound of tests/test_torch_port_v4_train.py)
+F32_FLOOR_SLACK = 16.0
+# the committed synthetic config through train_stereo: its one cut the
+# dataset, 64 scenes, for 20 steps
+NEW_CONFIG_DATASETS, NEW_CONFIG_STEPS = ["synthetic_64"], 20
+
+
+def _plain_step(model, batch, loss_fn, dtype=torch.float32) -> tuple:
+    """The loss, gradients and new running stats of one plain train-mode
+    step on a copy of ``model`` in ``dtype`` (the model is left as it
+    was)."""
+    model = copy.deepcopy(model).to(dtype).train()
+    img1, img2, flow, valid = batch
+    preds = model(img1.to(dtype), img2.to(dtype))
+    loss = loss_fn(preds, flow, valid)
+    loss.backward()
+    grads = {k: p.grad.detach().double().cpu()
+             for k, p in model.named_parameters()}
+    stats = {k: v.double().cpu() for k, v in model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    return float(loss.detach()), grads, stats
+
+
+def _step_on_card_and_cpu(device, name, cfg) -> dict:
+    """The first training step from the train-start init on the card
+    against the same step on the CPU (module docstring, phase 10c): float64
+    held outright to the CPU's float64 step; float32 held to it against
+    the float32 floor, the larger error of the CPU's float32 step and of
+    the card's on the batch reversed (the same sums in another order)."""
+    hw = tuple(cfg.data.image_size)
+    b = STEP_BATCH.get(name, cfg.train.batch_size)
+    cpu_model, *_ = create_train_state(cfg, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(device)
+    loss_fn = build_loss_function({"type": cfg.train.loss.type,
+                                   "parameters": cfg.train.loss.parameters})
+    batch = next(iter(SyntheticBatches(b, hw, seed0=SEED,
+                                       max_disp=96.0 * hw[1] / 640)))[1:]
+    card_batch = tuple(t.to(device) for t in batch)
+    steps, cpu_s = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        key = str(dtype)[6:]
+        t0 = time.perf_counter()
+        steps["cpu", key] = _plain_step(cpu_model, batch, loss_fn, dtype)
+        cpu_s[key] = time.perf_counter() - t0
+        steps["card", key] = _plain_step(card_model, card_batch, loss_fn,
+                                         dtype)
+    steps["card", "reversed"] = _plain_step(
+        card_model, tuple(t.flip(0) for t in card_batch), loss_fn,
+        torch.float32)
+    want_loss, want, want_stats = steps["cpu", "float64"]
+
+    def err(g):  # per tensor: relative L2 from the float64 step
+        return {k: float((g[k] - w).norm()) / float(w.norm())
+                for k, w in want.items()}
+
+    floors = [err(steps[side, key][1]) for side, key in
+              (("cpu", "float32"), ("card", "reversed"))]
+    floor = {k: max(f[k] for f in floors) for k in want}
+    stat_floor = {k: max(float((steps[side, key][2][k] - w).abs().max())
+                         for side, key in (("cpu", "float32"),
+                                           ("card", "reversed")))
+                  for k, w in want_stats.items()}
+    result = dict(batch=b, crop=hw, cpu_s=cpu_s, loss_cpu_float64=want_loss)
+    for key in ("float64", "float32"):
+        loss, grads, stats = steps["card", key]
+        if not abs(loss - want_loss) <= STEP_LOSS_RTOL * abs(want_loss):
+            raise AssertionError(f"{name} {key} step loss on the card {loss}"
+                                 f" against the CPU's float64 {want_loss}")
+        # parameters whose gradient is ~0 (< 1e-3: zero by construction,
+        # such as a bias before a train-mode BatchNorm) are skipped, as
+        # ``_grad_errors`` skips them
+        rel, bad, over = err(grads), [], 0.0
+        for k, w in want.items():
+            if float(w.norm()) < 1e-3:
+                continue
+            limit = STEP_GRAD_RTOL if key == "float64" else max(
+                STEP_GRAD_RTOL, F32_FLOOR_SLACK * floor[k])
+            over = max(over, rel[k] / limit)
+            if not rel[k] <= limit:
+                bad.append(f"{k} off by {rel[k]:.3e} (limit {limit:.3e})")
+        s_err = 0.0
+        for k, w in want_stats.items():
+            e = float((stats[k] - w).abs().max())
+            limit = STEP_STAT_TOL if key == "float64" else max(
+                STEP_STAT_TOL, F32_FLOOR_SLACK * stat_floor[k])
+            s_err = max(s_err, e)
+            if not e <= limit:
+                bad.append(f"running stat {k} off by {e:.3e} (limit "
+                           f"{limit:.3e})")
+        if bad:
+            raise AssertionError(f"{name} {key} step on the card against the"
+                                 f" CPU's float64: {'; '.join(bad)}")
+        checked = [k for k, w in want.items() if float(w.norm()) >= 1e-3]
+        result[key] = dict(loss_card=loss, grad_worst_over_limit=over,
+                           grad_rel_l2_worst=max(rel[k] for k in checked),
+                           stat_max_err=s_err,
+                           skipped=len(want) - len(checked))
+    result["float32_floor_grad_rel_l2_worst"] = max(
+        floor[k] for k in want if float(want[k].norm()) >= 1e-3)
+    return result
+
+
+def _frames_720p(device, model) -> dict:
+    """1280 x 720 batch-1 frames of the trained model, float32 and bf16
+    autocast: min and median ms over ``TIMED_STEPS`` frames after
+    ``WARMUP_STEPS``, by CUDA events; the bf16 final map's median |d|
+    against the float32 one."""
+    left, right, _, _ = make_scene(SEED, *HW)
+    left, right = (torch.from_numpy(a[None].astype("float32")).to(device)
+                   for a in (left, right))
+    out, finals = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        runner = validators.ModelRunner(
+            model, fast=False if dtype == torch.float32 else "auto",
+            dtype=dtype, device=device)
+        if runner.dtype != dtype:
+            raise AssertionError(f"runner dtype {runner.dtype}")
+        ms = []
+        for i in range(WARMUP_STEPS + TIMED_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            final = runner(left, right)[-1]
+            end.record()
+            end.synchronize()
+            if i >= WARMUP_STEPS:
+                ms.append(start.elapsed_time(end))
+        finals[dtype] = final.float()
+        out[str(dtype)[6:]] = dict(ms_min=min(ms),
+                                   ms_median=statistics.median(ms), ms=ms)
+    f32, bf16 = finals[torch.float32], finals[torch.bfloat16]
+    if bf16.shape != (1, *HW, 1) or not bool(torch.isfinite(bf16).all()):
+        raise AssertionError(f"720p bf16 output {tuple(bf16.shape)}")
+    median = float((bf16 - f32).abs().median())
+    if not median <= EVAL_BF16_MEDIAN_PX:
+        raise AssertionError(f"720p bf16 median |d| {median} px")
+    out["bf16_median_px"] = median
+    return out
+
+
+def _train_step_times(device, name, cfg) -> dict:
+    """``train()`` in bf16 on the config's train section (pre-made batches
+    on the card), 2 + 8 steps: median and min ms by CUDA events."""
+    cfg = copy.deepcopy(cfg)
+    cfg.path = str(ROOT / "_runs" / f"chip_smoke_train_{name}")
+    b, hw = cfg.train.batch_size, tuple(cfg.data.image_size)
+    data = SyntheticBatches(b, hw, n_batches=WARMUP_STEPS + TIMED_STEPS,
+                            seed0=SEED, max_disp=96.0 * hw[1] / 640,
+                            device=device)
+    events, losses = [], []
+
+    def on_step(step, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        losses.append(metrics["live_loss"])
+
+    train(cfg, max_steps=WARMUP_STEPS + TIMED_STEPS - 1, data_loader=data,
+          device=device, on_step=on_step)
+    torch.cuda.synchronize()
+    shutil.rmtree(cfg.path)
+    ms = [events[i - 1].elapsed_time(events[i])
+          for i in range(WARMUP_STEPS, len(events))]
+    values = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{name} train() losses {values}")
+    return dict(batch=b, crop=hw, step_ms_median=statistics.median(ms),
+                step_ms_min=min(ms), step_ms=ms, losses=values)
+
+
+def check_new_model(device, name: str, smi: str) -> dict:
+    """Phase "v4" / "dispnetc" (module docstring, phase 10c)."""
+    spec = json.loads(HELD_OUT.read_text())[name]
+    want = spec["validate_synthetic"]
+    config_path, weights = ROOT / spec["config"], ROOT / spec["weights"]
+    config = load_config(config_path)
+    if not config.model.mixed_precision:
+        raise AssertionError(f"{name}: the eval main path is bf16")
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+
+    # the trained model: evaluate.main (plain forward, bf16 autocast), then
+    # the plain float32 model
+    bf16 = evaluate.main([f"--exp_config_json={config_path}",
+                          f"--model_chkpt_file={weights}",
+                          f"--device={device}"])
+    model = build_model(config.model.as_dict(), device=device)
+    load_weights(weights, model)
+    f32 = validators.validate_synthetic(
+        validators.ModelRunner(model, fast=False, device=device),
+        n_images=EVAL_SCENES)
+    gaps = dict(
+        f32_epe_vs_jax=f32["synthetic-epe"] - want["synthetic-epe"],
+        f32_d1_vs_jax=f32["synthetic-d1"] - want["synthetic-d1"],
+        bf16_epe_vs_f32=bf16["synthetic-epe"] - f32["synthetic-epe"],
+        bf16_d1_vs_f32=bf16["synthetic-d1"] - f32["synthetic-d1"])
+    log(f"  {name} held-out: float32 {json.dumps(f32)}, bf16 (evaluate.main)"
+        f" {json.dumps(bf16)}; JAX (held_out.json) {json.dumps(want)}; gaps "
+        f"{json.dumps(gaps)} | {smi}")
+    if not (abs(gaps["f32_epe_vs_jax"]) <= NEW_EVAL_EPE_TOL
+            and abs(gaps["f32_d1_vs_jax"]) <= NEW_EVAL_D1_TOL):
+        raise AssertionError(f"{name} float32 held-out {f32} against the JAX "
+                             f"package's {want}")
+    if not (abs(gaps["bf16_epe_vs_f32"]) <= EVAL_BF16_EPE_GAP
+            and abs(gaps["bf16_d1_vs_f32"]) <= EVAL_BF16_D1_GAP):
+        raise AssertionError(f"{name} bf16 held-out {bf16} against float32 "
+                             f"{f32}")
+    frames = _frames_720p(device, model)
+    log(f"  {name} 720p frames (trained): float32 min "
+        f"{frames['float32']['ms_min']:.3f} / median "
+        f"{frames['float32']['ms_median']:.3f} ms, bf16 min "
+        f"{frames['bfloat16']['ms_min']:.3f} / median "
+        f"{frames['bfloat16']['ms_median']:.3f} ms, bf16 median |d| "
+        f"{frames['bf16_median_px']:.4f} px | {smi}")
+    del model
+
+    # a seeded full-width model of the repo config (its train-start init:
+    # torch's default init leaves V4's output constant) in eval mode: one
+    # float32 forward on the card against the CPU
+    cfg = load_config(NEW_MODELS[name]["config"])
+    seeded, *_ = create_train_state(cfg, seed=SEED, device="cpu")
+    seeded.eval()
+    left, right = (torch.rand(1, *CARD_CPU_HW, 3, generator=torch.Generator()
+                              .manual_seed(i)) * 255 for i in range(2))
+    with torch.no_grad():
+        cpu = seeded(left, right)
+        card = seeded.to(device)(left.to(device), right.to(device))
+    diffs = [(c.cpu() - w).abs() for c, w in zip(card, cpu)]
+    card_cpu = dict(median_px=[float(d.median()) for d in diffs],
+                    max_px=[float(d.max()) for d in diffs],
+                    output_std_px=[float(w.std()) for w in cpu])
+    log(f"  {name} seeded float32 forward at {CARD_CPU_HW}, card against CPU"
+        f" per head: {json.dumps(card_cpu)}")
+    if not max(card_cpu["median_px"]) < CARD_CPU_MEDIAN_PX:
+        raise AssertionError(f"{name} card against CPU {card_cpu}")
+    del seeded
+
+    step = _step_on_card_and_cpu(device, name, cfg)
+    log(f"  {name} first training step, card against CPU: "
+        f"{json.dumps(step)}")
+    times = _train_step_times(device, name, cfg)
+    log(f"  {name} train() bf16 at batch {times['batch']}, {times['crop']}: "
+        f"step median {times['step_ms_median']:.3f} ms, min "
+        f"{times['step_ms_min']:.3f} ms | {smi}")
+
+    # the committed synthetic config through the train entry point
+    path = train_config_file(f"chip_smoke_{name}_config",
+                             NEW_MODELS[name]["train_config"],
+                             datasets=NEW_CONFIG_DATASETS)
+    run_cfg = load_config(path)
+    run = run_train_config(device, path, NEW_CONFIG_STEPS - 1, expected={})
+    metric_log = check_metric_log(run, run_cfg)
+    third = NEW_CONFIG_STEPS // 3
+    first, last = (statistics.mean(run["losses"][:third]),
+                   statistics.mean(run["losses"][-third:]))
+    if not last <= first * 1.05:
+        raise AssertionError(f"{name} config run: loss rose, {run['losses']}")
+    shutil.rmtree(run_cfg.path)
+    path.unlink()
+    log(f"  {name} train_stereo on {NEW_MODELS[name]['train_config'].name} "
+        f"({NEW_CONFIG_DATASETS}): {run['steps']} steps, loss mean of the "
+        f"first / last {third} {first:.4f} / {last:.4f}, step median "
+        f"{run['step_ms_median']:.3f} ms, metric log {json.dumps(metric_log)}"
+        f" | {smi}")
+
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if launches:
+        raise AssertionError(f"{name}: hand-written kernels launched on a "
+                             f"path without any: {launches}")
+    return dict(launches=launches, eval_float32=f32, eval_bf16=bf16,
+                jax_held_out=want, gaps=gaps, frames_720p=frames,
+                card_vs_cpu=card_cpu, first_step=step, train_steps=times,
+                config_run=dict(steps=run["steps"], losses=run["losses"],
+                                step_ms_median=run["step_ms_median"],
+                                metric_log=metric_log,
+                                resident_gb=run["resident_gb"]))
+
+
+def new_model_phases(device, smi: str, names) -> dict:
+    """Phases "v4" and "dispnetc"; the scenes their config runs pack are
+    removed from the disk cache afterwards where they made them."""
+    cache = cache_path(SyntheticStereo(
+        length=int(NEW_CONFIG_DATASETS[0].split("_")[1])))
+    made = not cache.exists()
+    results = {}
+    for name in names:
+        with Phase(name):
+            results[name] = check_new_model(device, name, smi)
+    if made:
+        cache.unlink(missing_ok=True)
+    return results
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--train-config-steps", type=int, default=None,
                         metavar="N",
                         help="run only the committed v2 synthetic config, "
                              "unmodified, for N + 1 steps, and time it")
+    parser.add_argument("--only", nargs="+", choices=sorted(NEW_MODELS),
+                        help="run only these model phases (v4, dispnetc)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -2302,6 +2651,15 @@ def main(argv=None) -> int:
         "torch.backends.cuda.matmul.allow_tf32 = False")
     if args.train_config_steps is not None:
         time_train_config(device, smi, args.train_config_steps)
+        return 0
+    if args.only:
+        results = new_model_phases(device, smi, args.only)
+        log(json.dumps({name: {k: v for k, v in r.items()}
+                        for name, r in results.items()}))
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
         return 0
     log(f"bounds from peaks {peaks[0]:.3g} B/s, {peaks[1]:.3g} bf16 FLOP/s")
 
@@ -2360,6 +2718,7 @@ def main(argv=None) -> int:
         eval_v3 = check_eval(device, "v3", LAUNCHES_PER_FRAME_V3)
     with Phase("train config"):
         train_config = check_train_config(device, smi)
+    new_models = new_model_phases(device, smi, sorted(NEW_MODELS))
     # last: a profiler session can leave per-launch tracing costs on the
     # host, which would slow the frames and steps timed above
     with Phase("narrow routes"):
@@ -2428,7 +2787,7 @@ def main(argv=None) -> int:
              "infer_frame_v2": v2_result, "infer_frame_v3": v3_result,
              "train_run_v2": train_v2, "train_run_v3": train_v3,
              "eval_v2": eval_v2, "eval_v3": eval_v3,
-             "train_config_v2": train_config}
+             "train_config_v2": train_config, **new_models}
     kernels = []
     for name, row in rows.items():
         by_path = {p: r["launches"].get(name, 0) for p, r in paths.items()}
@@ -2490,6 +2849,9 @@ def main(argv=None) -> int:
                     "eval": {"v2": eval_v2, "v3": eval_v3},
                     "train_config_v2": {k: v for k, v in train_config.items()
                                         if k not in ("losses", "final")},
+                    **{name: {k: v for k, v in r.items()
+                              if k not in ("launches",)}
+                       for name, r in new_models.items()},
                     "autograd_err": {" ".join(k): v
                                      for k, v in grad_worst.items()},
                     "nvidia_smi": smi}))

@@ -36,6 +36,7 @@ import torch
 from realtime_stereo_matcher_tpu_torch import resolve_device
 from realtime_stereo_matcher_tpu_torch.data import datasets
 from realtime_stereo_matcher_tpu_torch.models.fast_infer import (
+    has_kernel_path,
     make_fast_forward,
 )
 from realtime_stereo_matcher_tpu_torch.ops import InputPadder
@@ -48,14 +49,19 @@ LATENCY_WARMUP, LATENCY_ITERS = 3, 10
 class ModelRunner:
     """``runner(left, right) -> [negative disparity maps]`` over one model.
 
-    ``fast`` picks the forward: ``"auto"`` (default) the kernel path
-    (``models/fast_infer.py``, in ``dtype``) on a CUDA device and the plain
-    float32 model on the CPU; ``True`` the kernel path on either (on the
-    CPU its kernels run their plain versions); ``False`` the plain float32
-    model.  The kernel path folds the weights once, here, for every shape;
-    its tile plans are cached per shape.  Nothing falls back: an error of
-    the kernel path propagates.  ``device`` is resolved by
-    ``resolve_device``, so without CUDA the default raises.
+    ``fast`` picks the forward of a model with a kernel path (v1, v2, v3;
+    ``models/fast_infer.py``): ``"auto"`` (default) the kernel path in
+    ``dtype`` on a CUDA device and the plain float32 model on the CPU;
+    ``True`` the kernel path on either (on the CPU its kernels run their
+    plain versions); ``False`` the plain float32 model.  A model without a
+    kernel path (V4, DispNetC; the JAX package has none for them either)
+    runs its plain forward: under ``"auto"`` on a CUDA device autocast to
+    ``dtype`` (bf16 where the config asks for mixed precision, as the JAX
+    package runs the Flax model in the config's dtype), else in float32;
+    ``fast=True`` raises for it.  The kernel path folds the weights once,
+    here, for every shape; its tile plans are cached per shape.  Nothing
+    falls back: an error of the kernel path propagates.  ``device`` is
+    resolved by ``resolve_device``, so without CUDA the default raises.
     """
 
     def __init__(self, model: torch.nn.Module, *, fast="auto",
@@ -65,15 +71,24 @@ class ModelRunner:
                              f"{fast!r}")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
-        self.fast = self.device.type == "cuda" if fast == "auto" else fast
-        self.dtype = dtype if self.fast else torch.float32
+        kernels = has_kernel_path(self.model)
+        if fast is True and not kernels:
+            raise NotImplementedError(
+                f"{type(self.model).__name__} has no kernel path (nor has "
+                f"it in the JAX package); run it with fast='auto' or False")
+        on_cuda = self.device.type == "cuda"
+        self.fast = kernels and (on_cuda if fast == "auto" else fast)
+        autocast = not kernels and fast == "auto" and on_cuda
+        self.dtype = dtype if self.fast or autocast else torch.float32
         self._forward = (make_fast_forward(self.model, dtype=dtype)
                          if self.fast else self._plain)
         self._latency: dict[tuple, float] = {}
 
     @torch.no_grad()
     def _plain(self, left, right):
-        return self.model(left, right)
+        with torch.autocast(self.device.type, dtype=self.dtype,
+                            enabled=self.dtype != torch.float32):
+            return self.model(left, right)
 
     def __call__(self, left, right):
         return self._forward(left, right)

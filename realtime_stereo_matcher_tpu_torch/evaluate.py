@@ -11,7 +11,9 @@ It runs on the card unless ``--device cpu`` is given, and raises when CUDA
 is asked for and absent.  On the card ``--fast auto`` runs the kernel path
 (``models/fast_infer.py``) in bf16 when the config's
 ``model.mixed_precision`` is set (the default), else in float32; on the
-CPU it runs the plain float32 model.  Weights load with
+CPU it runs the plain float32 model.  MobileStereoNetV4 and MobileDispNetC
+have no kernel path: on the card they run their plain forward, autocast to
+bf16 under the same flag (``--fast on`` raises for them).  Weights load with
 ``models/checkpoint.py`` (the port's own files or a reference ``.pth``).
 The classical SGBM config raises ``NotImplementedError``: that model is
 not ported yet.

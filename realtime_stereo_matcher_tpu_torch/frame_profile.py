@@ -1,8 +1,8 @@
 """Where the device time of a 720p frame, or of a training step, goes, by
 kernel.
 
-    python -m realtime_stereo_matcher_tpu_torch.frame_profile [--model v1|v2|v3] [--frames 8]
-    python -m realtime_stereo_matcher_tpu_torch.frame_profile --train [--model v1|v2|v3] [--frames 4]
+    python -m realtime_stereo_matcher_tpu_torch.frame_profile [--model v1|v2|v3|v4|dispnetc] [--frames 8]
+    python -m realtime_stereo_matcher_tpu_torch.frame_profile --train [--model v1|v2|v3|v4|dispnetc] [--frames 4]
 
 Builds the model (v1 by default, or v2 or v3) as ``bench.py`` does, runs
 ``--frames`` frames of the bf16 kernel path under ``torch.profiler`` after
@@ -19,6 +19,11 @@ With ``--train`` the unit is one bf16 kernel-path training step of the
 model's repo config and its train section (v1: batch 4, 480 x 640; v2 and
 v3: batch 8, 240 x 320; seeded synthetic scenes, weights from the
 train-start init), after two warm-up steps.
+
+MobileStereoNetV4 (``v4``) and MobileDispNetC (``dispnetc``) have no
+kernel path: their frame is the plain forward and their step the plain
+step (``train.trainer.make_train_step``), both under bf16 autocast, at
+their repo configs (V4: batch 6, 240 x 320; DispNetC: batch 8, 256 x 320).
 """
 
 from __future__ import annotations
@@ -39,7 +44,14 @@ from realtime_stereo_matcher_tpu_torch.models.fast_infer import make_fast_forwar
 from realtime_stereo_matcher_tpu_torch.models.fast_train import (
     make_fast_train_step,
 )
-from realtime_stereo_matcher_tpu_torch.train.trainer import create_train_state
+from realtime_stereo_matcher_tpu_torch.train.trainer import (
+    create_train_state,
+    make_train_step,
+)
+
+# the models without a kernel path, by their repo configs
+PLAIN_MODELS = {"v4": bench.CONFIGURE / "stereo_net_config_v4.json",
+                "dispnetc": bench.CONFIGURE / "disp_net_c_config.json"}
 
 # rsm::conv_kernel<T, CI, CO, S, KD, K>
 _CONV = re.compile(r"conv_kernel<([^,]+),\s*(\d+),\s*(\d+),\s*(\d+),"
@@ -123,21 +135,36 @@ def kernel_route(name: str) -> str | None:
 
 
 def frame_fn(dev, seed, model="v1"):
-    """One bf16 720p frame of ``model``'s kernel path."""
-    model = build_model(bench.model_config(model), device=dev,
-                        generator=torch.Generator().manual_seed(seed))
-    forward = make_fast_forward(model)
+    """One bf16 720p frame of ``model``'s kernel path (the plain forward
+    under autocast for V4 and DispNetC)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     left, right = (torch.rand((1, *bench.HW, 3), generator=gen, device=dev)
                    * 255 for _ in range(2))
+    if model in PLAIN_MODELS:
+        net = build_model(load_config(PLAIN_MODELS[model]).model.as_dict(),
+                          device=dev,
+                          generator=torch.Generator().manual_seed(seed))
+
+        @torch.no_grad()
+        def forward(left, right):
+            with torch.autocast(dev.type, dtype=torch.bfloat16):
+                return net(left, right)
+    else:
+        forward = make_fast_forward(build_model(
+            bench.model_config(model), device=dev,
+            generator=torch.Generator().manual_seed(seed)))
     return lambda: forward(left, right)
 
 
 def train_step_fn(dev, seed, model="v1"):
-    """One bf16 kernel-path training step of ``model``'s repo config."""
-    cfg = load_config(bench.MODELS[model][0])
+    """One bf16 kernel-path training step of ``model``'s repo config (the
+    plain step for V4 and DispNetC)."""
+    plain = model in PLAIN_MODELS
+    cfg = load_config(PLAIN_MODELS[model] if plain else bench.MODELS[model][0])
     model, tx, _, state = create_train_state(cfg, seed=seed, device=dev)
-    step = make_fast_train_step(model, tx, cfg.train.loss.parameters)
+    step = (make_train_step(model, tx, cfg.train.loss.parameters,
+                            dtype=torch.bfloat16) if plain
+            else make_fast_train_step(model, tx, cfg.train.loss.parameters))
     h, w = cfg.data.image_size
     # scenes up to 96 px of disparity at 640 px wide, as wide at 320
     data = SyntheticBatches(cfg.train.batch_size, (h, w), seed0=seed,
@@ -220,7 +247,8 @@ def main(argv=None) -> int:
                     help="frames (or training steps) to profile")
     ap.add_argument("--train", action="store_true",
                     help="profile bf16 kernel-path training steps")
-    ap.add_argument("--model", choices=sorted(bench.MODELS), default="v1",
+    ap.add_argument("--model", choices=sorted([*bench.MODELS, *PLAIN_MODELS]),
+                    default="v1",
                     help="model of the frame or training step")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

@@ -10,8 +10,9 @@ a jet-colour PNG for each pair:
         --replace _left _right --output out/
 
 It runs on the card unless ``--device cpu`` is given (as ``evaluate``:
-the bf16 kernel path on the card for a mixed-precision config, the plain
-float32 model on the CPU) and prints each pair's FPS, timed on the host
+the bf16 kernel path on the card for a mixed-precision config, or for V4
+and DispNetC their plain forward in bf16; the plain float32 model on the
+CPU) and prints each pair's FPS, timed on the host
 around the forward and a synchronisation.  It reads the images and writes
 the PNG through Pillow, so it runs only where Pillow is installed: without
 it, ``main`` raises ``ImportError`` before it builds the model.

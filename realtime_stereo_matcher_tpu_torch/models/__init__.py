@@ -1,10 +1,10 @@
 """Model factory (port of ``realtime_stereo_matcher_tpu/models/__init__.py``).
 
-``build_model`` takes the reference config schema
-``{"type": <name>, "parameters": {...}}`` with the same type strings as the
-JAX package.  MobileStereoNet v1, v2 and v3 are ported so far; the other
-types are queued in ROADMAP.md.  ``is_neural`` tells the trained models
-from the classical baseline, as in the JAX package.
+``build_model`` takes the reference config schema ``{"type": <name>,
+"parameters": {...}}`` with the same type strings as the JAX package.  Every
+neural model is ported (MobileStereoNet v1, v2, v3 and V4, MobileDispNetC);
+the classical SGBM baseline is queued in ROADMAP.md.  ``is_neural`` tells the
+trained models from the classical baseline, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -12,20 +12,26 @@ from __future__ import annotations
 import torch
 
 from realtime_stereo_matcher_tpu_torch import resolve_device
+from realtime_stereo_matcher_tpu_torch.models.disp_net_c import MobileDispNetC
 from realtime_stereo_matcher_tpu_torch.models.layers import init_parameters
 from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
     MobileStereoNet,
     MobileStereoNetV2,
     MobileStereoNetV3,
 )
+from realtime_stereo_matcher_tpu_torch.models.stereo_net_v4 import (
+    MobileStereoNetV4,
+)
 
 _PORTED = {"MobileStereoNet": MobileStereoNet,
            "MobileStereoNetV2": MobileStereoNetV2,
-           "MobileStereoNetV3": MobileStereoNetV3}
+           "MobileStereoNetV3": MobileStereoNetV3,
+           "MobileStereoNetV4": MobileStereoNetV4,
+           "MobileDispNetC": MobileDispNetC}
 # types the JAX package builds that the port does not have yet
-_QUEUED = ("MobileStereoNetV4", "MobileDispNetC", "OpenCVSGBMModule")
-# the neural types of the JAX package, ported or not
-_NEURAL = (*_PORTED, "MobileStereoNetV4", "MobileDispNetC")
+_QUEUED = ("OpenCVSGBMModule",)
+# the neural types of the JAX package
+_NEURAL = tuple(_PORTED)
 
 
 def build_model(model_config: dict, *, device="cuda",
@@ -57,5 +63,6 @@ def is_neural(model_config: dict) -> bool:
     return model_config["type"] in _NEURAL
 
 
-__all__ = ["MobileStereoNet", "MobileStereoNetV2", "MobileStereoNetV3",
-           "build_model", "is_neural"]
+__all__ = ["MobileDispNetC", "MobileStereoNet", "MobileStereoNetV2",
+           "MobileStereoNetV3", "MobileStereoNetV4", "build_model",
+           "is_neural"]

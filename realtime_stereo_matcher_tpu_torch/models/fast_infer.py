@@ -23,6 +23,9 @@ in the JAX package.
 Inputs are zero-padded to a multiple of 2^down_factor, exactly as the model
 pads them; the TPU-only alignment pad of the JAX package is not needed.
 Weights are folded once, here, in the path's dtype.
+
+MobileStereoNetV4 and MobileDispNetC have no kernel path, as in the JAX
+package (:func:`has_kernel_path`): they run their plain forward.
 """
 
 from __future__ import annotations
@@ -57,6 +60,15 @@ from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
 from realtime_stereo_matcher_tpu_torch.ops import pad_to_multiple
 
 
+# the models with a kernel path (v1 and v2 share one)
+KERNEL_PATH_MODELS = (MobileStereoNet, MobileStereoNetV2, MobileStereoNetV3)
+
+
+def has_kernel_path(model) -> bool:
+    """Whether ``make_fast_forward`` takes ``model`` (by its type)."""
+    return type(model) in KERNEL_PATH_MODELS
+
+
 def make_fast_forward(model, *, dtype=torch.bfloat16):
     """Build the kernel-path forward of a v1, v2 or v3 model (batch any,
     eval mode).
@@ -64,12 +76,12 @@ def make_fast_forward(model, *, dtype=torch.bfloat16):
     The returned function takes NHWC uint8-range images on the model's
     device and returns 3 (B, H, W, 1) float32 negative disparity maps,
     coarse to fine."""
-    if type(model) is MobileStereoNetV3:
-        return _make_fast_forward_v3(model, dtype)
-    if type(model) not in (MobileStereoNet, MobileStereoNetV2):
+    if not has_kernel_path(model):
         raise NotImplementedError(
             f"the kernel path supports MobileStereoNet v1, v2 and v3, not "
             f"{type(model).__name__}; see ROADMAP.md")
+    if type(model) is MobileStereoNetV3:
+        return _make_fast_forward_v3(model, dtype)
     warp = type(model) is MobileStereoNetV2
     down = model.down_factor
     align = 2 ** down

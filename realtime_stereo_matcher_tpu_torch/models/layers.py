@@ -1,4 +1,4 @@
-"""Building blocks of the v1, v2 and v3 models (port of ``realtime_stereo_matcher_tpu/models/layers.py``).
+"""Building blocks of the models (port of ``realtime_stereo_matcher_tpu/models/layers.py``).
 
 The modules are plain ``nn.Sequential`` stacks laid out as in the reference
 torch model, so their state-dict keys are the reference's
@@ -15,7 +15,14 @@ explicitly (:func:`tf_same_pad_k4s2`).
 BatchNorm uses the torch defaults the JAX package pins: eps 1e-5 and
 momentum 0.1 (flax momentum 0.9).  In train mode it follows flax, not torch
 (:class:`BatchNorm2d`): the running variance takes the biased batch
-variance.
+variance.  :class:`GroupedBatchNorm2d` normalizes two views stacked on the
+batch axis each by its own statistics (V4's siamese extractor).
+
+MobileStereoNetV4's MobileNet blocks (:class:`MobileV2Residual`,
+:class:`ConvBNDws`, :class:`MobileV1Residual`) and the transposed conv of
+its hourglass (:class:`ConvTransposeBN`) keep the reference's Sequential
+indices, so their state-dict keys are the ones the JAX package's importer
+reads (``torch_import._map_v4``).
 """
 
 from __future__ import annotations
@@ -29,11 +36,22 @@ from torch import nn
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 LEAKY_SLOPE = 0.2  # the v3 U-Net's leaky ReLU (JAX layers.leaky_relu_02)
+LEAKY_SLOPE_DISPNET = 0.1  # MobileDispNetC's (JAX layers.leaky_relu_01)
 
 
 def leaky_relu_02(x: torch.Tensor) -> torch.Tensor:
     """Leaky ReLU with negative slope 0.2 (v3 U-Net activation)."""
     return F.leaky_relu(x, LEAKY_SLOPE)
+
+
+def leaky_relu_01(x: torch.Tensor) -> torch.Tensor:
+    """Leaky ReLU with negative slope 0.1 (MobileDispNetC activation)."""
+    return F.leaky_relu(x, LEAKY_SLOPE_DISPNET)
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """min(max(x, 0), 6) (the MobileNet blocks' activation)."""
+    return F.relu6(x)
 
 
 def tf_same_pad_k4s2(n: int) -> tuple[int, int]:
@@ -56,10 +74,16 @@ class SameConv2d(nn.Conv2d):
         return super().forward(F.pad(x, (left, right, top, bottom)))
 
 
+def stats_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type BatchNorm statistics are taken in: float32, or float64 for
+    float64 inputs (flax promotes to at least float32)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def batch_stats(y: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
-    """flax train-mode statistics: float32 mean and biased variance
-    ``E[y^2] - E[y]^2`` over ``dims``."""
-    yf = y.float()
+    """flax train-mode statistics: mean and biased variance ``E[y^2] -
+    E[y]^2`` over ``dims``, in float32 (float64 for float64 ``y``)."""
+    yf = y.to(stats_dtype(y.dtype))
     mu = yf.mean(dims)
     return mu, (yf * yf).mean(dims) - mu * mu
 
@@ -72,7 +96,8 @@ def running_update(old: torch.Tensor, batch: torch.Tensor) -> torch.Tensor:
 
 class _FlaxBatchNorm:
     """Train mode with flax semantics on a torch BatchNorm (state-dict keys
-    unchanged): float32 batch statistics over N and the spatial axes, the
+    unchanged): float32 (float64 for float64 inputs) batch statistics over
+    N and the spatial axes, the
     output ``(y - mean) * (weight / sqrt(var + eps)) + bias`` cast back to
     y's dtype, and running stats updated with the *biased* variance.  torch
     updates them with the unbiased one, a factor n/(n-1) on the update term
@@ -91,7 +116,7 @@ class _FlaxBatchNorm:
             self.num_batches_tracked.add_(1)
         shape = (1, -1) + (1,) * (x.ndim - 2)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (x.float() - mu.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        y = (x.to(mu.dtype) - mu.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
 
@@ -101,6 +126,64 @@ class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
 
 class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
     """``nn.BatchNorm3d`` whose train mode follows flax (see _FlaxBatchNorm)."""
+
+
+class GroupedBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm over ``groups`` sub-batches stacked along the batch axis
+    (JAX ``GroupedBatchNorm``, models/layers.py:35-116).
+
+    In train mode each group of N / ``groups`` consecutive images is
+    normalized by its own float32 statistics (float64 for float64 inputs;
+    biased variance ``E[x^2] - mu^2``), and the running stats take the
+    groups' updates one after the other, in closed form ``m^G r + sum_g
+    m^(G-1-g) (1 - m) batch_g`` with ``m`` = 0.9: one batched pass equals G
+    sequential passes of one BatchNorm, which is how the reference runs its
+    siamese extractor on the left view, then the right.  The output is ``x *
+    s + b`` with ``s = weight / sqrt(var + eps)`` and ``b = bias - mu * s``
+    cast to x's dtype, the JAX package's folded form.  Eval mode is torch's
+    running-stats affine, for any batch.  The variance is clipped at 0, as in
+    flax's BatchNorm.  A ``_BatchNorm``, so ``train/freeze.py`` freezes
+    it."""
+
+    def __init__(self, num_features: int, groups: int = 2, **kw):
+        super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM, **kw)
+        self.groups = groups
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        g, c = self.groups, x.shape[1]
+        if x.shape[0] % g:
+            raise ValueError(f"batch {x.shape[0]} is not {g} equal groups")
+        xg = x.reshape(g, -1, *x.shape[1:])             # (G, b, C, H, W)
+        xf = xg.to(stats_dtype(x.dtype))
+        dims = (1, *range(3, xg.ndim))
+        mu = xf.mean(dims)                               # (G, C)
+        # clipped at 0 as flax's BatchNorm clips it (the JAX package's
+        # GroupedBatchNorm does not: a round-off below -eps gives NaN)
+        var = ((xf * xf).mean(dims) - mu * mu).clamp(min=0.0)
+        with torch.no_grad():
+            m = 1.0 - BN_MOMENTUM
+            w = m ** torch.arange(g - 1, -1, -1, dtype=mu.dtype,
+                                  device=x.device)
+            for run, batch in ((self.running_mean, mu),
+                               (self.running_var, var)):
+                run.copy_(m ** g * run
+                          + (1.0 - m) * (w[:, None] * batch.detach()).sum(0))
+            self.num_batches_tracked.add_(g)
+        s = self.weight[None] * torch.rsqrt(var + self.eps)  # (G, C)
+        b = self.bias[None] - mu * s
+        shape = (g, 1, c) + (1,) * (x.ndim - 2)
+        y = xg * s.view(shape).to(x.dtype) + b.view(shape).to(x.dtype)
+        return y.reshape(x.shape)
+
+
+def batch_norm2d(channels: int, groups: int = 1) -> nn.Module:
+    """:class:`BatchNorm2d`, or :class:`GroupedBatchNorm2d` over ``groups``
+    stacked sub-batches (JAX ``ConvBN(bn_groups=...)``)."""
+    if groups > 1:
+        return GroupedBatchNorm2d(channels, groups)
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 def conv_bn_layers(in_ch: int, out_ch: int, *, stride: int = 1,
@@ -141,6 +224,99 @@ class ResBlock(nn.Module):
 
     def forward(self, x):
         return self.conv(x) + x
+
+
+def conv_bn(in_ch: int, out_ch: int, kernel: int = 1, *, stride: int = 1,
+            padding: int = 0, dilation: int = 1, groups: int = 1,
+            bn_groups: int = 1) -> nn.Sequential:
+    """Sequential(Conv2d without bias, BatchNorm) -- the reference's
+    ``convbn`` (keys ``.0`` and ``.1``)."""
+    return nn.Sequential(
+        nn.Conv2d(in_ch, out_ch, kernel, stride=stride, padding=padding,
+                  dilation=dilation, groups=groups, bias=False),
+        batch_norm2d(out_ch, bn_groups))
+
+
+class MobileV2Residual(nn.Module):
+    """MobileNetV2 inverted residual (JAX ``MobileV2Residual``,
+    models/layers.py:218; reference mobile_stereo_net_v4.py:91-148): a 1x1
+    expansion to ``in_ch * expanse_ratio`` + BN + ReLU6, a depthwise 3x3 +
+    BN + ReLU6, a linear 1x1 + BN, and the skip where the stride is 1 and
+    the widths agree.  ``conv`` holds the reference's Sequential (keys
+    ``conv.0`` / ``.1`` / ``.3`` / ``.4`` / ``.6`` / ``.7``), V4's
+    expansion ratios being 2 and 3.  NCHW."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int,
+                 expanse_ratio: int, dilation: int = 1, bn_groups: int = 1):
+        super().__init__()
+        hidden = int(in_ch * expanse_ratio)
+        self.use_res = stride == 1 and in_ch == out_ch
+        self.conv = nn.Sequential(
+            *conv_bn(in_ch, hidden, bn_groups=bn_groups), nn.ReLU6(),
+            *conv_bn(hidden, hidden, 3, stride=stride, padding=dilation,
+                     dilation=dilation, groups=hidden, bn_groups=bn_groups),
+            nn.ReLU6(),
+            *conv_bn(hidden, out_ch, bn_groups=bn_groups))
+
+    def forward(self, x):
+        y = self.conv(x)
+        return x + y if self.use_res else y
+
+
+class ConvBNDws(nn.Sequential):
+    """Depthwise-separable conv (JAX ``ConvBNDws``, models/layers.py:257;
+    reference ``convbn_dws``): a depthwise 3x3 + BN + ReLU6, then a 1x1 +
+    BN (+ ReLU6 where ``second_relu``).  Keys ``.0`` / ``.1`` / ``.3`` /
+    ``.4``.  NCHW."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int, pad: int,
+                 dilation: int, second_relu: bool = True, bn_groups: int = 1):
+        p = dilation if dilation > 1 else pad
+        layers = [*conv_bn(in_ch, in_ch, 3, stride=stride, padding=p,
+                           dilation=dilation, groups=in_ch,
+                           bn_groups=bn_groups),
+                  nn.ReLU6(),
+                  *conv_bn(in_ch, out_ch, bn_groups=bn_groups)]
+        if second_relu:
+            layers.append(nn.ReLU6())
+        super().__init__(*layers)
+
+
+class MobileV1Residual(nn.Module):
+    """MobileNetV1 residual (JAX ``MobileV1Residual``, models/layers.py:290;
+    reference mobile_stereo_net_v4.py:68-88): two :class:`ConvBNDws`, the
+    second without its last ReLU6, plus the input, through a strided 1x1 +
+    BN (``downsample``) where ``downsample`` is set.  NCHW."""
+
+    def __init__(self, in_ch: int, out_ch: int, stride: int,
+                 downsample: bool, pad: int, dilation: int,
+                 bn_groups: int = 1):
+        super().__init__()
+        self.conv1 = ConvBNDws(in_ch, out_ch, stride, pad, dilation,
+                               bn_groups=bn_groups)
+        self.conv2 = ConvBNDws(out_ch, out_ch, 1, pad, dilation,
+                               second_relu=False, bn_groups=bn_groups)
+        self.downsample = (conv_bn(in_ch, out_ch, stride=stride,
+                                   bn_groups=bn_groups)
+                           if downsample else None)
+
+    def forward(self, x):
+        out = self.conv2(self.conv1(x))
+        return out + (x if self.downsample is None else self.downsample(x))
+
+
+class ConvTransposeBN(nn.Sequential):
+    """Sequential(ConvTranspose2d without bias, BatchNorm) (JAX
+    ``ConvTransposeBN``, models/layers.py:318) as V4's hourglass has it:
+    k 3, stride 2, padding 1, output_padding 1, an exact 2x upsample -- the
+    Flax kernel's explicit ((1, 2), (1, 2)) padding, since torch puts the
+    output padding on the high side.  Keys ``.0`` and ``.1``.  NCHW."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__(
+            nn.ConvTranspose2d(in_ch, out_ch, 3, stride=2, padding=1,
+                               output_padding=1, bias=False),
+            batch_norm2d(out_ch))
 
 
 def normalize_images(img: torch.Tensor, dtype=None) -> torch.Tensor:

@@ -2,9 +2,10 @@
 
 The JAX package re-implements ``torch.nn.functional.interpolate`` with
 ``align_corners=False`` and no antialias as gather arithmetic; here it is
-that very call.  The warps by a horizontal flow map (v2's and v3's
-refinements warp the right view's RGB or features by the current
-disparity) were plain XLA in the JAX package and are plain PyTorch here:
+that very call (bilinear, nearest, and V4's trilinear).  The warps by a
+horizontal flow map (v2's and v3's refinements warp the right view's RGB or
+features by the current disparity) were plain XLA in the JAX package and are
+plain PyTorch here:
 
 * :func:`warp_by_flow_map` -- the reference's ``F.grid_sample`` warp, with
   its ``align_corners=False`` renormalization on both axes;
@@ -39,6 +40,20 @@ def resize_nearest(x: torch.Tensor, out_hw, *, h_axis: int = 1, w_axis: int = 2)
 def resize_bilinear(x: torch.Tensor, out_hw, *, h_axis: int = 1, w_axis: int = 2):
     """Bilinear resize, align_corners=False, no antialias (torch semantics)."""
     return _resize(x, out_hw, h_axis, w_axis, "bilinear")
+
+
+def resize_trilinear(x: torch.Tensor, out_dhw, *, d_axis: int = 1,
+                     h_axis: int = 2, w_axis: int = 3):
+    """Trilinear resize over (D, H, W), align_corners=False: half-pixel
+    centres, a source index below 0 clamped to 0 (torch mode="trilinear",
+    the JAX package's ``resize_trilinear``; reference
+    model/mobile_stereo_net_v4.py:477-478)."""
+    xm = torch.movedim(x, (d_axis, h_axis, w_axis), (-3, -2, -1))
+    lead = xm.shape[:-3]
+    y = F.interpolate(xm.reshape(1, -1, *xm.shape[-3:]), size=tuple(out_dhw),
+                      mode="trilinear", align_corners=False)
+    return torch.movedim(y.reshape(*lead, *y.shape[-3:]), (-3, -2, -1),
+                         (d_axis, h_axis, w_axis))
 
 
 def warp_by_flow_map(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:

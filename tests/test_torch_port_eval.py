@@ -19,18 +19,19 @@ package's function and to its counterpart in the port:
 
 The validators, ``ModelRunner`` and the entry points are held to the JAX
 package in tests/test_torch_port_eval_runs.py, the trained weights in
-tests/test_torch_port_eval_v2.py and tests/test_torch_port_eval_v3.py;
-they share this file's helpers.  Run as a script, this file writes the
-port's copies of the two trained checkpoints and their held-out metrics:
+tests/test_torch_port_eval_v2.py, _v3.py, _v4.py and _dispnetc.py; they
+share this file's helpers.  Run as a script, this file writes the port's
+copies of the trained checkpoints and their held-out metrics:
 
-    python tests/test_torch_port_eval.py --write-weights
+    python tests/test_torch_port_eval.py --write-weights [v2 v3 v4 dispnetc]
 
-It restores each orbax checkpoint under ``experiments/`` read-only with
-the JAX package's ``create_train_state`` and ``restore_checkpoint``, maps
-it with ``models/convert.py`` ``from_jax_variables``, saves the state dict
-to ``realtime_stereo_matcher_tpu_torch/weights/``, and runs the JAX
-package's ``validate_synthetic`` (40 held-out scenes, Flax, float32) into
-``weights/held_out.json``.
+(all four without names).  It restores each orbax checkpoint under
+``experiments/`` read-only with the JAX package's ``restore_checkpoint``
+into a template of its ``create_train_state``'s shapes, maps it with
+``models/convert.py`` ``from_jax_variables``, saves the state dict to
+``realtime_stereo_matcher_tpu_torch/weights/``, and runs the JAX package's
+``validate_synthetic`` (40 held-out scenes, Flax, float32) into
+``weights/held_out.json``, keeping the entries of the models not named.
 """
 
 import json
@@ -57,8 +58,12 @@ from realtime_stereo_matcher_tpu.data.synthetic import (  # noqa: E402
 from realtime_stereo_matcher_tpu.eval import (  # noqa: E402
     validators as jax_validators,
 )
+from realtime_stereo_matcher_tpu.models import (  # noqa: E402
+    build_model as jax_build_model,
+)
+from realtime_stereo_matcher_tpu.train.optim import make_optimizer  # noqa: E402
 from realtime_stereo_matcher_tpu.train.trainer import (  # noqa: E402
-    create_train_state,
+    TrainState,
     restore_checkpoint,
 )
 from realtime_stereo_matcher_tpu.utils import colorize as jax_colorize  # noqa: E402
@@ -116,6 +121,20 @@ TRAINED = {
         step=20001,
         weights=("realtime_stereo_matcher_tpu_torch/weights/"
                  "synth_stereo_net_v3-20001.pt")),
+    "v4": dict(
+        config="configure/stereo_net_v4_synthetic_config.json",
+        checkpoint=("experiments/SYNTH_STEREO_NET_V4/checkpoints/"
+                    "SYNTH_STEREO_NET_V4-epoch-20001.ckpt"),
+        step=20001,
+        weights=("realtime_stereo_matcher_tpu_torch/weights/"
+                 "synth_stereo_net_v4-20001.pt")),
+    "dispnetc": dict(
+        config="configure/disp_net_c_synthetic_config.json",
+        checkpoint=("experiments/SYNTH_DISP_NET_C/checkpoints/"
+                    "SYNTH_DISP_NET_C-epoch-20001.ckpt"),
+        step=20001,
+        weights=("realtime_stereo_matcher_tpu_torch/weights/"
+                 "synth_disp_net_c-20001.pt")),
 }
 # a small v2 for the validators and the entry points (hidden 8, dilations
 # (1, 1))
@@ -132,6 +151,25 @@ class JaxRunner(jax_validators.ModelRunner):
         return 1.0
 
 
+def train_state_shapes(cfg):
+    """(Flax model, the shapes and dtypes of the JAX package's
+    ``create_train_state(cfg)``), traced without running its init (an
+    unjitted V4 init takes about a minute on the CPU): all that
+    ``restore_checkpoint`` reads of its template."""
+    model = jax_build_model(cfg.model.as_dict())
+    tx, _ = make_optimizer(cfg.train.learn_rate, cfg.train.num_of_steps,
+                           cfg.train.weight_decay)
+    dummy = jax.numpy.zeros((1, 64, 64, 3), jax.numpy.float32)
+
+    def make(key):
+        v = model.init(key, dummy, dummy, train=True)
+        return TrainState(step=jax.numpy.zeros((), jax.numpy.int32),
+                          params=v["params"], batch_stats=v["batch_stats"],
+                          opt_state=tx.init(v["params"]))
+
+    return model, jax.eval_shape(make, jax.random.PRNGKey(0))
+
+
 def restore_trained(name: str):
     """(Flax model, float32 variables as numpy, config) of a committed
     trained checkpoint, restored read-only by the JAX package."""
@@ -140,7 +178,7 @@ def restore_trained(name: str):
     if not ckpt.is_dir():
         pytest.fail(f"the committed checkpoint {ckpt} is missing")
     cfg = jax_load_config(ROOT / spec["config"])
-    model, _, _, template = create_train_state(cfg, sample_hw=(64, 64))
+    model, template = train_state_shapes(cfg)
     state = restore_checkpoint(ckpt, template)
     assert int(state.step) == spec["step"]
     variables = jax.tree_util.tree_map(
@@ -243,13 +281,44 @@ def trained_held_out_check(name: str, restored) -> None:
     assert worst < 1e-2
 
 
-def write_weights() -> None:
-    """Write the port's copies of the trained checkpoints and their JAX
-    held-out metrics (see the module docstring)."""
+def trained_pixels_check(name: str, restored, n_scenes: int) -> float:
+    """The port's plain float32 runner (the ``evaluate`` entry point's on
+    the CPU) against the JAX package's (Flax, float32) on the JAX package's
+    own first ``n_scenes`` held-out scenes, padded as ``validate_synthetic``
+    pads them: the final prediction within 1e-2 px per pixel.  Returns the
+    largest difference."""
+    from realtime_stereo_matcher_tpu_torch.config import load_config
+
+    model, variables, _ = restored
+    spec = TRAINED[name]
+    runner = evaluate.build_runner(load_config(ROOT / spec["config"]),
+                                   str(ROOT / spec["weights"]), device="cpu")
+    assert not runner.fast and runner.dtype == torch.float32
+    jax_runner = JaxRunner(model, variables, fast=False)
+    scenes = JaxSyntheticStereo(length=n_scenes, seed0=10 ** 6)
+    worst = 0.0
+    for i in range(n_scenes):
+        _, image1, image2, _, _ = scenes[i]
+        left, right, _ = validators._prep(image1, image2)
+        want = np.asarray(jax_runner(left.numpy(), right.numpy())[-1])
+        got = runner(left, right)[-1].numpy()
+        assert got.shape == want.shape == (1, *left.shape[1:3], 1)
+        worst = max(worst, float(np.abs(got - want).max()))
+    print(f"{name}: largest per-pixel difference from Flax {worst:.3e} px "
+          f"on {n_scenes} held-out scenes")
+    assert worst < 1e-2
+    return worst
+
+
+def write_weights(names=()) -> None:
+    """Write the port's copies of the trained checkpoints ``names`` (all
+    when empty) and their JAX held-out metrics (see the module
+    docstring)."""
     jax.config.update("jax_platforms", "cpu")
     WEIGHTS.mkdir(exist_ok=True)
-    record = {}
-    for name, spec in TRAINED.items():
+    record = json.loads(HELD_OUT.read_text()) if HELD_OUT.exists() else {}
+    for name in names or TRAINED:
+        spec = TRAINED[name]
         model, variables, _ = restore_trained(name)
         torch.save(from_jax_variables(variables), ROOT / spec["weights"])
         metrics = jax_held_out(model, variables)
@@ -570,9 +639,16 @@ def test_is_neural_matches_jax(config):
 
     model = load_config(ROOT / "configure" / config).model.as_dict()
     assert is_neural(model) == jax_is_neural(model)
+    if is_neural(model):  # every neural model of the repo is ported
+        build_model(model, device="cpu")
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            build_model(model, device="cpu")
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--write-weights"]:
-        sys.exit("usage: python tests/test_torch_port_eval.py --write-weights")
-    write_weights()
+    if sys.argv[1:2] != ["--write-weights"] or not set(sys.argv[2:]) <= set(
+            TRAINED):
+        sys.exit("usage: python tests/test_torch_port_eval.py "
+                 f"--write-weights [{' '.join(TRAINED)}]")
+    write_weights(sys.argv[2:])

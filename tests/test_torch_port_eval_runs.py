@@ -193,6 +193,26 @@ def test_model_runner_paths_on_the_cpu(small_v2):
         validators.ModelRunner(port, fast="on", device="cpu")
 
 
+@pytest.mark.parametrize("mtype", ["MobileStereoNetV4", "MobileDispNetC"])
+def test_model_runner_takes_models_without_a_kernel_path(mtype):
+    """V4 and DispNetC have no kernel path (nor have they in the JAX
+    package): ``fast="auto"`` runs their plain forward (float32 on the CPU;
+    on CUDA autocast to ``dtype``), ``fast=True`` raises, ``fast=False`` is
+    the plain float32 model."""
+    model = build_model({"type": mtype, "parameters": {}}, device="cpu")
+    left, right = (torch.rand(1, 64, 64, 3, generator=torch.Generator(
+        ).manual_seed(i)) * 255 for i in range(2))
+    with torch.no_grad():
+        want = model(left, right)
+    for fast in ("auto", False):
+        runner = validators.ModelRunner(model, fast=fast, device="cpu")
+        assert not runner.fast and runner.dtype == torch.float32
+        for g, w in zip(runner(left, right), want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="no kernel path"):
+        validators.ModelRunner(model, fast=True, device="cpu")
+
+
 def test_model_runner_needs_cuda_by_default(small_v2):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA")

@@ -105,6 +105,17 @@ TRAIN_DATA_MODULES = (
 )
 
 
+# the V4 and DispNetC slice's modules, named for the same reason
+V4_DISPNETC_MODULES = (
+    "realtime_stereo_matcher_tpu_torch.models.disp_net_c",
+    "realtime_stereo_matcher_tpu_torch.models.layers",
+    "realtime_stereo_matcher_tpu_torch.models.convert",
+    "realtime_stereo_matcher_tpu_torch.models.stereo_net_v4",
+    "realtime_stereo_matcher_tpu_torch.ops.cost_volume",
+    "realtime_stereo_matcher_tpu_torch.train.init",
+)
+
+
 def test_imports_with_jax_blocked():
     """Every port module and chip_smoke import with the banned names made
     unimportable, so no import reaches them, directly or transitively."""
@@ -112,6 +123,7 @@ def test_imports_with_jax_blocked():
     assert set(V3_MODULES) <= set(_module_names())
     assert set(EVAL_MODULES) <= set(_module_names())
     assert set(TRAIN_DATA_MODULES) <= set(_module_names())
+    assert set(V4_DISPNETC_MODULES) <= set(_module_names())
     code = (
         "import importlib, sys\n"
         f"banned = {BANNED!r}\n"

@@ -29,7 +29,11 @@ from realtime_stereo_matcher_tpu.models import build_model as jax_build_model
 from realtime_stereo_matcher_tpu.models.torch_import import (
     import_torch_state_dict,
 )
-from realtime_stereo_matcher_tpu_torch.models import build_model
+from realtime_stereo_matcher_tpu_torch.models import (
+    MobileDispNetC,
+    MobileStereoNetV4,
+    build_model,
+)
 from realtime_stereo_matcher_tpu_torch.models.convert import from_jax_variables
 from realtime_stereo_matcher_tpu_torch.models.fast_infer import make_fast_forward
 from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
@@ -214,12 +218,15 @@ def test_build_model_is_seeded():
 @pytest.mark.parametrize("mtype", ["MobileStereoNetV2", "MobileStereoNetV4",
                                    "MobileDispNetC", "OpenCVSGBMModule"])
 def test_unported_types_name_the_roadmap(mtype):
-    """Each type the port does not have raises naming ROADMAP.md.  v2 was
-    one of them until it was ported: its case checks that it left the
-    queue and builds."""
-    if mtype == "MobileStereoNetV2":
+    """Each type the port does not have raises naming ROADMAP.md.  v2, V4
+    and DispNetC were among them until they were ported: their cases check
+    that they left the queue and build."""
+    ported = {"MobileStereoNetV2": MobileStereoNetV2,
+              "MobileStereoNetV4": MobileStereoNetV4,
+              "MobileDispNetC": MobileDispNetC}
+    if mtype in ported:
         model = build_model({"type": mtype, "parameters": {}}, device="cpu")
-        assert type(model) is MobileStereoNetV2 and model.refine_dim == 7
+        assert type(model) is ported[mtype] and not model.training
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         build_model({"type": mtype, "parameters": {}}, device="cpu")
@@ -264,7 +271,8 @@ def test_fast_forward_takes_v1_and_v3_only():
 
 def test_v2_still_raises():
     """v2 was queued until it was ported: it now builds from the repo's v2
-    config in eval mode, and the types after it in the queue still raise."""
+    config in eval mode, and the type still in the queue (the classical
+    SGBM; V4 and DispNetC have left it too) raises."""
     import json
     import pathlib
 
@@ -276,5 +284,5 @@ def test_v2_still_raises():
             model.refine_dim) == (3, 192, 32, 7)
     assert model.refine_dilates == (1, 2, 4, 8, 1, 1)
     with pytest.raises(NotImplementedError, match="queued in ROADMAP.md"):
-        build_model({"type": "MobileStereoNetV4", "parameters": {}},
+        build_model({"type": "OpenCVSGBMModule", "parameters": {}},
                     device="cpu")
