@@ -6,7 +6,8 @@
 
 The second form runs only the committed v2 synthetic training config as
 committed (``time_train_config``) and prints its timing; the first runs
-every phase below.
+every phase below.  ``--only v4 dispnetc data_parallel`` runs those phases
+alone.
 
 Runs on one NVIDIA Hopper card (it exits non-zero at once without CUDA) and
 imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
@@ -140,10 +141,44 @@ imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
     20 steps, its metric log and a falling or flat loss.  No hand-written
     kernel may launch in either phase (``python3 chip_smoke.py --only v4
     dispnetc`` runs these phases alone).
+10d. data parallel (``--only data_parallel`` runs it alone): two ranks,
+    each a process of this script (``--dp-rank``) started with its
+    ``RSM_*`` env vars by ``parallel.distributed.spawn_ranks``, over NCCL
+    with a card a rank or over gloo where they share one card (the
+    backend and each rank's device are printed); the kernels are built
+    once, here, before the ranks start.  (a) v2's repo config (global
+    batch 8, 240 x 320, 4 a rank, train-start init, one seeded batch): the
+    first float32 and bf16 kernel-path steps on the ranks against the same
+    step in this process on the global batch: loss within 1e-5 and EPE
+    within 1e-4 relative, the parameters after the update within rtol 1e-3
+    / atol 2e-4 and the running stats within rtol 1e-4 / atol 1e-5 (the
+    JAX package's tolerances for its sharded step; bf16 may stray 6 x as
+    far as this process's bf16 step does on the batch reordered three ways,
+    which moves only the order of its float32 sums, as the ranks do: this
+    process's bf16 step with every conv run on the two halves of its batch,
+    the ranks' conv batch, must give its loss, EPE and running stats bit
+    for bit), the gradients by the train phases' rule (in bf16 but for
+    v2's two biases whose gradient is zero by symmetry), the ranks'
+    parameters equal; every rank
+    launches K1 108 / K3 10 / K4 59 a bf16 step; the bf16 step median on
+    the ranks and here; the collective audit of a bf16 step (the gradient
+    all-reduce 4 bytes a parameter).  (b) a 1-rank NCCL group through one
+    float32 step, equal to this process's step bit for bit (loss, EPE,
+    gradients, parameters, running stats, launches; both under
+    ``torch.use_deterministic_algorithms``, under which one process
+    repeats its step bit for bit; without them two runs of one process
+    differ in their gradients, and the count is printed), and its bf16
+    step median (one process's work with the DP step's collectives).  (c) the v2 synthetic config
+    through ``train_stereo`` on 2 ranks, 512 scenes (256 resident a rank),
+    20 steps: every step's launches those of a v2 step, the same losses on
+    both ranks, falling, equal final parameter hashes, the step median.
+    (d) ``parallel.scaling_bench`` at 720p bf16, 2 frames a rank, at every
+    rank count up to the cards of the machine.
 11. report: one ``{"kernels": [...]}`` line (each kernel's
     ``launches_by_path`` with ``eval_v2`` / ``eval_v3``, its launches a
     frame of the eval phase, ``train_config_v2``, its launches in the 99
-    steps of phase 10b, and ``v4`` / ``dispnetc``, 0 in phase 10c), one
+    steps of phase 10b, ``v4`` / ``dispnetc``, 0 in phase 10c, and
+    ``data_parallel``, rank 0's in the 20 steps of phase 10d (c)), one
     latency line (the eval metrics under
     ``eval``, phase 10b's under ``train_config_v2``), the ``nvidia-smi``
     name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -154,11 +189,14 @@ Any failed check raises, so the script exits non-zero and prints no "ok".
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
+import hashlib
 import json
 import logging
 import math
+import os
 import pathlib
 import shutil
 import statistics
@@ -218,22 +256,44 @@ from realtime_stereo_matcher_tpu_torch.kernels.train_conv import (
 from realtime_stereo_matcher_tpu_torch.kernels.train_conv3d import flat_conv3d
 from realtime_stereo_matcher_tpu_torch.models import build_model
 from realtime_stereo_matcher_tpu_torch.models.checkpoint import load_weights
+from realtime_stereo_matcher_tpu_torch.models import fast_train
 from realtime_stereo_matcher_tpu_torch.models.fast_infer import make_fast_forward
 from realtime_stereo_matcher_tpu_torch.models.fast_train import (
     fast_train_forward,
     load_running_stats,
+    make_fast_train_step,
     running_stats,
 )
 from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
     refine_max_shifts,
 )
+from realtime_stereo_matcher_tpu_torch.parallel.comm_audit import audit
+from realtime_stereo_matcher_tpu_torch.parallel.distributed import (
+    ENV_PROCESS_ID,
+    default_group,
+    free_port,
+    init_group,
+    initialize,
+    shutdown,
+    spawn_ranks,
+)
+from realtime_stereo_matcher_tpu_torch.parallel.mesh import (
+    make_mesh,
+    shard_batch,
+)
+from realtime_stereo_matcher_tpu_torch.parallel.scaling_bench import (
+    scaling_efficiency,
+)
+from realtime_stereo_matcher_tpu_torch.train import trainer
 from realtime_stereo_matcher_tpu_torch.train.loss import build_loss_function
 from realtime_stereo_matcher_tpu_torch.train.optim import onecycle_schedule
 from realtime_stereo_matcher_tpu_torch.train.trainer import (
+    broadcast_state,
     create_train_state,
     restore_checkpoint,
     train,
 )
+from realtime_stereo_matcher_tpu_torch.utils.logger import setup_basic_logging
 
 SEED = 0
 HW = (720, 1280)
@@ -2623,14 +2683,482 @@ def new_model_phases(device, smi: str, names) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# data parallel: the v2 kernel train step and train_stereo across processes
+# ---------------------------------------------------------------------------
+
+# two ranks: over NCCL with a card each, over gloo on one shared card
+DP_WORLD = 2
+# the JAX package's tolerances for its sharded float32 step against one
+# device (tests/test_fast_train.py:318-340): loss, EPE (relative), the
+# parameters after the update and the running stats, (rtol, atol)
+DP_LOSS_RTOL, DP_EPE_RTOL = 1e-5, 1e-4
+DP_PARAM_TOL, DP_STAT_TOL = (1e-3, 2e-4), (1e-4, 1e-5)
+# bf16: a number may also stray 6 x as far as the one-process step on the
+# batch in another order does, the farthest of these orders (_dp_compare)
+DP_BF16_FLOOR_SLACK = 6.0
+DP_BF16_ORDERS = {"reversed": [7, 6, 5, 4, 3, 2, 1, 0],
+                  "halves swapped": [4, 5, 6, 7, 0, 1, 2, 3],
+                  "interleaved": [0, 4, 1, 5, 2, 6, 3, 7]}
+# v2's parameters whose gradient is zero by symmetry: the encoder head's bias
+# cancels in the difference volume, the cost filter head's in the
+# soft-argmin (shift invariance); bf16 noise gives them a norm, not held
+DP_ZERO_GRADS = ("feature_extractor.6.bias", "cost_filter.12.bias")
+# the v2 synthetic config through train_stereo on the ranks: 512 scenes,
+# 256 resident on each rank, 20 steps
+DP_TRAIN_DATASETS, DP_TRAIN_STEPS = ["synthetic_512"], 20
+DP_DIR = ROOT / "_runs" / "chip_smoke_dp"
+DP_RANKS_TIMEOUT_S = 600.0
+
+
+def _dp_config_and_batch(device):
+    """v2's repo config (its train section: batch 8, 240 x 320) and one
+    seeded batch of it on ``device``."""
+    cfg = load_config(bench.MODELS["v2"][0])
+    b, hw = cfg.train.batch_size, tuple(cfg.data.image_size)
+    assert (b, hw) == (TRAIN_B_V23, TRAIN_HW_V23)
+    data = SyntheticBatches(b, hw, seed0=SEED,
+                            max_disp=96.0 * hw[1] / TRAIN_HW[1], device=device)
+    return cfg, list(next(iter(data))[1:])
+
+
+def _dp_step(cfg, device, dtype, batch, group=None, timed: bool = False):
+    """One v2 kernel-path step from the train-start init (rank 0's, where
+    ``group``) on ``batch``: its loss and EPE, the gradients the optimizer
+    was given (before the clip), the parameters and running stats after it
+    (on the CPU) and the step's launches, counted from 0; with ``timed``
+    then 2 + 8 more steps, ms by CUDA events."""
+    model, tx, _, state = create_train_state(cfg, device=device)
+    broadcast_state(state, group)
+    step_fn = make_fast_train_step(model, tx, cfg.train.loss.parameters,
+                                   cfg.train.loss.type, dtype=dtype,
+                                   group=group)
+    grads = {}
+    optimizer_step = tx.step
+
+    def step():
+        grads.update({k: p.grad.detach().float().cpu()
+                      for k, p in model.named_parameters()
+                      if p.grad is not None})
+        return optimizer_step()
+
+    tx.step = step
+    torch.cuda.synchronize()
+    _build.LAUNCHES.clear()
+    _, metrics = step_fn(state, *batch)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    del tx.step
+    out = dict(loss=float(metrics["live_loss"]), epe=float(metrics["epe"]),
+               grads=grads, launches=launches,
+               params={k: p.detach().cpu() for k, p in
+                       model.named_parameters()},
+               stats={k: v.cpu() for k, v in running_stats(model).items()})
+    if timed:
+        events = []
+        for _ in range(WARMUP_STEPS + TIMED_STEPS + 1):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            step_fn(state, *batch)
+        torch.cuda.synchronize()
+        ms = [events[i - 1].elapsed_time(events[i])
+              for i in range(WARMUP_STEPS + 1, len(events))]
+        out.update(step_ms=ms, step_ms_median=statistics.median(ms))
+    return out
+
+
+@contextlib.contextmanager
+def _convs_in_halves():
+    """Every conv of the kernel step (the K1 / K3 autograd wrappers and the
+    cuDNN convs beside them) runs on the two halves of its batch, one after
+    the other: the one-process step at the ranks' conv batch, with no
+    collective."""
+    names = ("_conv2d_nhwc", "flat_conv3x3", "flat_conv3d")
+    saved = {n: getattr(fast_train, n) for n in names}
+
+    def in_halves(fn):
+        def run(x, *args, **kwargs):
+            h = x.shape[0] // 2
+            return torch.cat([fn(x[:h], *args, **kwargs),
+                              fn(x[h:], *args, **kwargs)])
+        return run
+
+    for n, fn in saved.items():
+        setattr(fast_train, n, in_halves(fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(fast_train, n, fn)
+
+
+def _dp_compare(got, want, floor, what, orders=None) -> dict:
+    """``got`` (a rank's step) against ``want`` (one process on the global
+    batch): loss and EPE, gradients (``_grad_errors``: max(1e-2, 6 x the
+    reversed-batch ``floor``)), parameters and running stats by the JAX
+    package's float32 tolerances, and the launches equal.  A bf16 step
+    (``orders``: the one-process bf16 steps on ``DP_BF16_ORDERS``) may also
+    stray ``DP_BF16_FLOOR_SLACK`` x as far as the farthest of ``orders``
+    does in its loss, EPE, parameters and running stats, and is held on
+    every gradient but ``DP_ZERO_GRADS``.  Raises naming every number over
+    its limit; returns the largest errors."""
+    out, bad = {}, []
+
+    def allowance(key, k=None):
+        if orders is None:
+            return 0.0
+        if k is None:
+            return DP_BF16_FLOOR_SLACK * max(abs(o[key] - want[key])
+                                             for o in orders)
+        return DP_BF16_FLOOR_SLACK * max(
+            float((o[key][k] - want[key][k]).abs().max()) for o in orders)
+
+    for key, rtol in (("loss", DP_LOSS_RTOL), ("epe", DP_EPE_RTOL)):
+        err = abs(got[key] - want[key]) / abs(want[key])
+        limit = max(rtol, allowance(key) / abs(want[key]))
+        if not err <= limit:
+            bad.append(f"{key} {got[key]} vs {want[key]} (rel {err:.3e}, "
+                       f"limit {limit:.3e})")
+        out[f"{key}_rel_err"], out[f"{key}_limit"] = err, limit
+    held = want["grads"]
+    if orders is not None:
+        held = {k: v for k, v in held.items() if k not in DP_ZERO_GRADS}
+    try:
+        out["grad_over_limit"], skipped = _grad_errors(
+            got["grads"], held, GRAD_RTOL_F32, what, floor["grads"],
+            GRAD_F32_FLOOR_SLACK)
+        out["grads_skipped"] = len(want["grads"]) - len(held) + len(skipped)
+    except AssertionError as exc:
+        bad.append(str(exc))
+    for key, (rtol, atol) in (("params", DP_PARAM_TOL),
+                              ("stats", DP_STAT_TOL)):
+        worst = 0.0
+        for k, w in want[key].items():
+            excess = float(((got[key][k] - w).abs() - rtol * w.abs()).max())
+            limit = max(atol, allowance(key, k))
+            if not excess <= limit:
+                bad.append(f"{key} {k}: {excess:.3e} over rtol {rtol} "
+                           f"(limit {limit:.3e})")
+            worst = max(worst, excess / limit)
+        out[f"{key}_over_limit"] = worst
+    if got["launches"] != want["launches"]:
+        bad.append(f"launches {got['launches']}, one process "
+                   f"{want['launches']}")
+    if bad:
+        raise AssertionError(f"{what}: " + "; ".join(bad))
+    return out
+
+
+def _dp_equal(got, want, what, keys=("grads", "params", "stats")) -> None:
+    """``got`` equal to ``want`` bit for bit: loss, EPE, and every tensor of
+    ``keys`` (gradients, parameters, running stats) and the launches where
+    ``keys`` holds them all."""
+    bad = [key for key in ("loss", "epe") if got[key] != want[key]]
+    if len(keys) == 3 and got["launches"] != want["launches"]:
+        bad.append("launches")
+    for key in keys:
+        if got[key].keys() != want[key].keys():
+            bad.append(f"{key} names")
+            continue
+        bad += [f"{key} {k} (max diff {float((got[key][k] - w).abs().max())})"
+                for k, w in want[key].items()
+                if not torch.equal(got[key][k], w)]
+    if bad:
+        raise AssertionError(f"{what} differs from one process: "
+                             + "; ".join(bad[:8]))
+
+
+def _rank_device(rank: int) -> torch.device:
+    """The card of rank ``rank``: ``cuda:{rank % device_count}``, made the
+    current device."""
+    device = torch.device("cuda", rank % torch.cuda.device_count())
+    torch.cuda.set_device(device)
+    return device
+
+
+def _dp_rank_step(out_dir: pathlib.Path) -> None:
+    """A rank of the phase's step check (``--dp-rank step``): its rows of
+    the saved batch through the float32 and bf16 DP steps, the bf16 one
+    timed, then one bf16 step under the collective audit; results to
+    ``step_rank<r>.pt``."""
+    initialize(device="cuda")
+    try:
+        mesh = make_mesh(data=DP_WORLD)
+        device = _rank_device(mesh.rank)
+        cfg = load_config(bench.MODELS["v2"][0])
+        batch = [t.to(device) for t in shard_batch(
+            mesh, torch.load(out_dir / "batch.pt", weights_only=True))]
+        out = dict(rank=mesh.rank, device=str(device),
+                   backend=torch.distributed.get_backend(mesh.group))
+        for key, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            out[key] = _dp_step(cfg, device, dtype, batch, mesh.group,
+                                timed=dtype == torch.bfloat16)
+        model, tx, _, state = create_train_state(cfg, device=device)
+        broadcast_state(state, mesh.group)
+        step_fn = make_fast_train_step(model, tx, cfg.train.loss.parameters,
+                                       cfg.train.loss.type,
+                                       dtype=torch.bfloat16, group=mesh.group)
+        report = audit(step_fn, state, *batch)
+        out["audit"] = {k: report[k] for k in ("per_op", "per_what",
+                                               "total_bytes")}
+        out["params"] = sum(p.numel() for p in model.parameters())
+        torch.save(out, out_dir / f"step_rank{mesh.rank}.pt")
+    finally:
+        shutdown()
+
+
+def _dp_rank_train(out_dir: pathlib.Path, config_path: str) -> None:
+    """A rank of the phase's train_stereo run (``--dp-rank train``): the
+    entry point as a user launches it (``RSM_*`` env vars), every step's
+    launches and CUDA-event time kept; the final parameters' hash and the
+    rest to ``train_rank<r>.json``."""
+    states, events, launches, losses = [], [], [], []
+    create = trainer.create_train_state
+
+    def capture(*args, **kwargs):
+        out = create(*args, **kwargs)
+        states.append(out[-1])
+        return out
+
+    def on_step(step, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        launches.append(dict(_build.LAUNCHES))
+        losses.append(metrics["live_loss"])
+
+    trainer.create_train_state = capture
+    setup_basic_logging()  # before the handler, or it would set up none
+    handler = _Records()
+    logging.getLogger().addHandler(handler)
+    _build.LAUNCHES.clear()
+    final = train_stereo.main([f"--exp_config_json={config_path}",
+                               f"--max_steps={DP_TRAIN_STEPS - 1}"],
+                              on_step=on_step)
+    torch.cuda.synchronize()
+    resident = [r.args[0] for r in handler.records
+                if r.msg.startswith("Device-resident dataset:")]
+    per_step = [{k: v - prev.get(k, 0) for k, v in cur.items()}
+                for prev, cur in zip([{}] + launches, launches)]
+    ms = [events[i - 1].elapsed_time(events[i])
+          for i in range(WARMUP_STEPS + 1, len(events))]
+    model = states[0].model
+    digest = hashlib.sha256()
+    for p in model.parameters():
+        digest.update(p.detach().cpu().contiguous().numpy().tobytes())
+    rank = int(os.environ[ENV_PROCESS_ID])
+    (out_dir / f"train_rank{rank}.json").write_text(json.dumps(dict(
+        rank=rank, device=str(next(model.parameters()).device),
+        hash=digest.hexdigest(), final=final, steps=states[0].step,
+        resident_scenes=resident,
+        losses=[float(v) for v in losses], launches_per_step=per_step,
+        launches=dict(_build.LAUNCHES), step_ms=ms,
+        step_ms_median=statistics.median(ms))))
+
+
+def check_data_parallel(device, smi: str) -> dict:
+    """Phase "data parallel" (module docstring, phase 10d)."""
+    _build.build()  # here, once: each rank would build it again
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    DP_DIR.mkdir(parents=True)
+    cards = torch.cuda.device_count()
+    cfg, batch = _dp_config_and_batch(device)
+    torch.save([t.cpu() for t in batch], DP_DIR / "batch.pt")
+
+    # (a) the first step on 2 ranks against one process on the global batch
+    t0 = time.perf_counter()
+    spawn_ranks([ROOT / "chip_smoke.py", "--dp-rank", "step", DP_DIR],
+                DP_WORLD, timeout=DP_RANKS_TIMEOUT_S, cwd=ROOT)
+    step_s = time.perf_counter() - t0
+    ranks = [torch.load(DP_DIR / f"step_rank{r}.pt", weights_only=True)
+             for r in range(DP_WORLD)]
+    one, errors = {}, {}
+    for key, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        one[key] = _dp_step(cfg, device, dtype, batch,
+                            timed=dtype == torch.bfloat16)
+    # the ranks run every conv at their local batch: that moves no bf16
+    # number of the forward, so the ranks differ from this process in the
+    # order of their float32 sums only, which reordering the batch samples
+    with _convs_in_halves():
+        halves = _dp_step(cfg, device, torch.bfloat16, batch)
+    _dp_equal(halves, one["bf16"], "bf16 step with its convs in halves",
+              keys=("stats",))
+    orders = {name: _dp_step(cfg, device, torch.bfloat16,
+                             [t[order] for t in batch])
+              for name, order in DP_BF16_ORDERS.items()}
+    floors = {"f32": _dp_step(cfg, device, torch.float32,
+                              [t.flip(0) for t in batch]),
+              "bf16": orders["reversed"]}
+    failures = []
+    for key in ("f32", "bf16"):
+        for r in ranks:
+            try:
+                errors[f"{key} rank {r['rank']}"] = _dp_compare(
+                    r[key], one[key], floors[key], f"DP {key} rank "
+                    f"{r['rank']}",
+                    list(orders.values()) if key == "bf16" else None)
+            except AssertionError as exc:
+                failures.append(str(exc))
+    order_rel = {n: abs(o["loss"] - one["bf16"]["loss"]) / one["bf16"]["loss"]
+                 for n, o in orders.items()}
+    log(f"  data parallel: one process, loss / EPE f32 {one['f32']['loss']}"
+        f" / {one['f32']['epe']}, reversed {floors['f32']['loss']} / "
+        f"{floors['f32']['epe']}; bf16 {one['bf16']['loss']} / "
+        f"{one['bf16']['epe']}, reversed {floors['bf16']['loss']} / "
+        f"{floors['bf16']['epe']}; bf16 loss rel in other orders "
+        f"{json.dumps(order_rel)}; ranks f32 {ranks[0]['f32']['loss']} / "
+        f"{ranks[0]['f32']['epe']}, bf16 {ranks[0]['bf16']['loss']} / "
+        f"{ranks[0]['bf16']['epe']}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    for r in ranks:
+        if r["bf16"]["launches"] != LAUNCHES_PER_STEP:
+            raise AssertionError(f"DP bf16 rank {r['rank']} launches "
+                                 f"{r['bf16']['launches']}")
+    if ranks[0]["f32"]["params"].keys() != ranks[1]["f32"]["params"].keys() \
+            or any(not torch.equal(ranks[0][k]["params"][n],
+                                   ranks[1][k]["params"][n])
+                   for k in ("f32", "bf16") for n in ranks[0][k]["params"]):
+        raise AssertionError("DP step: the ranks' parameters differ")
+    audit_report = ranks[0]["audit"]
+    grad_bytes = audit_report["per_what"]["gradients"]["bytes"]
+    if grad_bytes != 4 * ranks[0]["params"]:
+        raise AssertionError(f"gradient all-reduce {grad_bytes} B for "
+                             f"{ranks[0]['params']} parameters")
+    log(f"  data parallel: {DP_WORLD} ranks over "
+        f"{ranks[0]['backend']} on {[r['device'] for r in ranks]} "
+        f"({cards} card(s)), step check {step_s:.1f} s; first v2 step "
+        f"against one process on the global batch of "
+        f"{cfg.train.batch_size}: {json.dumps(errors)}")
+    log(f"  data parallel: launches a rank a step f32 "
+        f"{ranks[0]['f32']['launches']}, bf16 {ranks[0]['bf16']['launches']};"
+        f" bf16 step median {ranks[0]['bf16']['step_ms_median']:.3f} / "
+        f"{ranks[1]['bf16']['step_ms_median']:.3f} ms (ranks), one process "
+        f"{one['bf16']['step_ms_median']:.3f} ms | {smi}")
+    log(f"  data parallel: collectives a bf16 step (rank 0, payload bytes) "
+        f"{json.dumps(audit_report['per_what'])}; total "
+        f"{audit_report['total_bytes']} B")
+
+    # (b) a 1-rank NCCL group through one float32 step, in this process,
+    # against one process, both with deterministic algorithms (without them
+    # the index ops' backward makes the gradients differ between two runs
+    # of one process); then its bf16 step timed: the same work as one
+    # process on the global batch, plus every collective of the DP step
+    # (trivial at one rank)
+    again = _dp_step(cfg, device, torch.float32, batch)
+    nondeterministic = sum(not torch.equal(again["grads"][k], g)
+                           for k, g in one["f32"]["grads"].items())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        want = _dp_step(cfg, device, torch.float32, batch)
+        _dp_equal(_dp_step(cfg, device, torch.float32, batch), want,
+                  "one process's float32 step under deterministic algorithms")
+        init_group(f"localhost:{free_port()}", 1, 0, backend="nccl")
+        try:
+            nccl = _dp_step(cfg, device, torch.float32, batch,
+                            default_group())
+        finally:
+            shutdown()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    _dp_equal(nccl, want, "NCCL 1-rank float32 step")
+    init_group(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        nccl_ms = _dp_step(cfg, device, torch.bfloat16, batch,
+                           default_group(), timed=True)["step_ms_median"]
+    finally:
+        shutdown()
+    log(f"  data parallel: 1-rank NCCL float32 step equal to one process's "
+        f"bit for bit under deterministic algorithms (without them two runs "
+        f"of one process differ in {nondeterministic} of "
+        f"{len(again['grads'])} gradients); its bf16 step median "
+        f"{nccl_ms:.3f} ms, one process {one['bf16']['step_ms_median']:.3f} "
+        f"ms | {smi}")
+
+    # (c) the v2 synthetic config through train_stereo on 2 ranks
+    path = train_config_file("chip_smoke_dp_config",
+                             datasets=DP_TRAIN_DATASETS)
+    t0 = time.perf_counter()
+    spawn_ranks([ROOT / "chip_smoke.py", "--dp-rank", "train", DP_DIR, path],
+                DP_WORLD, timeout=DP_RANKS_TIMEOUT_S, cwd=ROOT)
+    train_s = time.perf_counter() - t0
+    runs = [json.loads((DP_DIR / f"train_rank{r}.json").read_text())
+            for r in range(DP_WORLD)]
+    if len({r["hash"] for r in runs}) != 1:
+        raise AssertionError("train_stereo on 2 ranks: final parameters "
+                             "differ")
+    scenes = int(DP_TRAIN_DATASETS[0].split("_")[1]) // DP_WORLD
+    for r in runs:
+        if any(c != LAUNCHES_PER_STEP for c in r["launches_per_step"]):
+            raise AssertionError(f"train_stereo rank {r['rank']} launches "
+                                 f"{r['launches_per_step']}")
+        if r["resident_scenes"] != [scenes]:
+            raise AssertionError(f"train_stereo rank {r['rank']}: resident "
+                                 f"scenes {r['resident_scenes']}, not "
+                                 f"{scenes}")
+    losses = runs[0]["losses"]
+    third = DP_TRAIN_STEPS // 3
+    first, last = statistics.mean(losses[:third]), statistics.mean(
+        losses[-third:])
+    if (len(losses) != DP_TRAIN_STEPS or runs[1]["losses"] != losses
+            or not all(math.isfinite(v) for v in losses) or not last < first):
+        raise AssertionError(f"train_stereo on 2 ranks: losses {losses} / "
+                             f"{runs[1]['losses']}")
+    shutil.rmtree(load_config(path).path)
+    path.unlink()
+    log(f"  data parallel: train_stereo on {TRAIN_CONFIG.name} "
+        f"({DP_TRAIN_DATASETS}, {scenes} resident a rank), {DP_TRAIN_STEPS} steps"
+        f" on {DP_WORLD} ranks in {train_s:.1f} s: loss mean of the first / "
+        f"last {third} {first:.4f} / {last:.4f}, equal final hashes, step "
+        f"median {runs[0]['step_ms_median']:.3f} / "
+        f"{runs[1]['step_ms_median']:.3f} ms (ranks) | {smi}")
+
+    # (d) the scaling bench (720p, bf16, 2 frames a rank) over the cards
+    scaling = scaling_efficiency(image_hw=HW, frames_per_device=2)
+    log(f"  data parallel: scaling_bench at 720p bf16, 2 frames a rank: "
+        f"{json.dumps(scaling)} | {smi}")
+    shutil.rmtree(DP_DIR)
+    return dict(
+        launches=runs[0]["launches"], backend=ranks[0]["backend"],
+        devices=[r["device"] for r in ranks], cards=cards,
+        first_step=errors, nccl_1_rank="bit for bit",
+        nondeterministic_grads=nondeterministic,
+        launches_per_step={"f32": ranks[0]["f32"]["launches"],
+                           "bf16": ranks[0]["bf16"]["launches"]},
+        step_ms_median={"ranks": [r["bf16"]["step_ms_median"]
+                                  for r in ranks],
+                        "one_process": one["bf16"]["step_ms_median"],
+                        "nccl_1_rank": nccl_ms},
+        audit_bytes=audit_report["per_what"],
+        audit_total_bytes=audit_report["total_bytes"],
+        train_stereo=dict(steps=DP_TRAIN_STEPS, losses=losses,
+                          seconds=train_s,
+                          step_ms_median=[r["step_ms_median"] for r in runs]),
+        scaling=scaling, step_check_s=step_s)
+
+
+def dp_rank_main(mode: str, args) -> int:
+    """``--dp-rank``: one rank of the data-parallel phase."""
+    if mode == "step":
+        _dp_rank_step(pathlib.Path(args[0]))
+    else:
+        _dp_rank_train(pathlib.Path(args[0]), args[1])
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--train-config-steps", type=int, default=None,
                         metavar="N",
                         help="run only the committed v2 synthetic config, "
                              "unmodified, for N + 1 steps, and time it")
-    parser.add_argument("--only", nargs="+", choices=sorted(NEW_MODELS),
-                        help="run only these model phases (v4, dispnetc)")
+    parser.add_argument("--only", nargs="+",
+                        choices=sorted(NEW_MODELS) + ["data_parallel"],
+                        help="run only these phases (v4, dispnetc, "
+                             "data_parallel)")
+    parser.add_argument("--dp-rank", nargs="+", metavar="ARG",
+                        help=argparse.SUPPRESS)  # a rank of data_parallel
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -2639,6 +3167,8 @@ def main(argv=None) -> int:
     device = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.dp_rank:
+        return dp_rank_main(args.dp_rank[0], args.dp_rank[1:])
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
@@ -2653,7 +3183,11 @@ def main(argv=None) -> int:
         time_train_config(device, smi, args.train_config_steps)
         return 0
     if args.only:
-        results = new_model_phases(device, smi, args.only)
+        results = new_model_phases(
+            device, smi, [n for n in args.only if n in NEW_MODELS])
+        if "data_parallel" in args.only:
+            with Phase("data parallel"):
+                results["data_parallel"] = check_data_parallel(device, smi)
         log(json.dumps({name: {k: v for k, v in r.items()}
                         for name, r in results.items()}))
         log(smi)
@@ -2719,6 +3253,8 @@ def main(argv=None) -> int:
     with Phase("train config"):
         train_config = check_train_config(device, smi)
     new_models = new_model_phases(device, smi, sorted(NEW_MODELS))
+    with Phase("data parallel"):
+        data_parallel = check_data_parallel(device, smi)
     # last: a profiler session can leave per-launch tracing costs on the
     # host, which would slow the frames and steps timed above
     with Phase("narrow routes"):
@@ -2787,7 +3323,8 @@ def main(argv=None) -> int:
              "infer_frame_v2": v2_result, "infer_frame_v3": v3_result,
              "train_run_v2": train_v2, "train_run_v3": train_v3,
              "eval_v2": eval_v2, "eval_v3": eval_v3,
-             "train_config_v2": train_config, **new_models}
+             "train_config_v2": train_config, **new_models,
+             "data_parallel": data_parallel}
     kernels = []
     for name, row in rows.items():
         by_path = {p: r["launches"].get(name, 0) for p, r in paths.items()}
@@ -2852,6 +3389,8 @@ def main(argv=None) -> int:
                     **{name: {k: v for k, v in r.items()
                               if k not in ("launches",)}
                        for name, r in new_models.items()},
+                    "data_parallel": {k: v for k, v in data_parallel.items()
+                                      if k != "launches"},
                     "autograd_err": {" ".join(k): v
                                      for k, v in grad_worst.items()},
                     "nvidia_smi": smi}))

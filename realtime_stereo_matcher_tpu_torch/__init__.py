@@ -19,9 +19,18 @@ Entry points run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; without CUDA they raise rather than fall back to the CPU.
 """
 
+import functools
+
 import torch
 
 __version__ = "0.1.0"
+
+
+def stats_dtype(*dtypes: torch.dtype) -> torch.dtype:
+    """The type statistics, masked sums and the softmax are taken in for
+    inputs of ``dtypes``: float32, or float64 where one is float64 (flax
+    promotes to at least float32; float64 steps are compared to rounding)."""
+    return functools.reduce(torch.promote_types, dtypes, torch.float32)
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -3,7 +3,9 @@ ship indices (port of ``realtime_stereo_matcher_tpu/data/device_cache.py``).
 
 The whole training set is uploaded once at start-up and each step sends a
 (B,) index vector instead of a raw batch; the batch is gathered on the card
-and augmented there (``data/device_augment.py``).  Layout per scene:
+and augmented there (``data/device_augment.py``).  In a data-parallel run
+each rank holds only its block of the scenes (``ShardedResidentScenes``).
+Layout per scene:
 
 * left/right images as uint8 (N, H, W, 3), the generator's output;
 * disparity as 16-bit fixed point: the synthetic set at 1/512 px
@@ -123,7 +125,7 @@ def pack_synthetic(ds, cache_dir=DEFAULT_CACHE_DIR) -> dict:
     return packed
 
 
-def pack_dataset(ds, *, max_bytes: float = 8e9) -> dict:
+def pack_dataset(ds, *, indices=None, max_bytes: float = 8e9) -> dict:
     """Materialize ANY uniform-shape StereoDataset as packed resident arrays.
 
     ``ds`` is a raw-mode (no host augmentor) dataset -- a single
@@ -135,9 +137,13 @@ def pack_dataset(ds, *, max_bytes: float = 8e9) -> dict:
     Raises ValueError on non-uniform shapes, disparities beyond 511 px, or a
     footprint over ``max_bytes`` -- the trainer catches it and falls back to
     host streaming.
+
+    ``indices``: pack only these dataset positions, in order (a
+    data-parallel rank packs its contiguous block, ``ShardedResidentScenes``).
     """
-    n = len(ds)
-    _, i1, _, _, _ = ds[0]
+    indices = list(indices) if indices is not None else range(len(ds))
+    n = len(indices)
+    _, i1, _, _, _ = ds[indices[0]]
     h, w = i1.shape[:2]
     nbytes = n * h * w * (3 + 3 + 2)
     if nbytes > max_bytes:
@@ -151,7 +157,7 @@ def pack_dataset(ds, *, max_bytes: float = 8e9) -> dict:
 
     def fill(lo, hi):
         for i in range(lo, hi):
-            _, a, b, flow, valid = ds[i]
+            _, a, b, flow, valid = ds[indices[i]]
             if a.shape[:2] != (h, w):
                 raise ValueError(
                     f"scene {i} shape {a.shape[:2]} != {(h, w)}: "
@@ -225,4 +231,58 @@ class DeviceResidentScenes:
             nb = len(idx) // batch_size
             for b in range(nb):
                 yield idx[b * batch_size:(b + 1) * batch_size].astype(np.int32)
+            epoch += 1
+
+
+class ShardedResidentScenes(DeviceResidentScenes):
+    """Scene-sharded residency for data-parallel training (JAX
+    ``ShardedResidentScenes``, data/device_cache.py:226-332).
+
+    Rank r of ``world`` holds only its block of ``per_device = total //
+    world`` scenes (``local_scene_range``), packed by that rank alone, so the
+    ranks together hold one copy of the dataset.  Each epoch draws ``world``
+    permutations of ``range(per_device)`` from ``default_rng(seed + epoch)``
+    and rank r takes its ``batch_size / world`` rows of permutation r:
+    LOCAL indices into its own block, fetched with no communication.  Not a
+    global shuffle, but each block is a random partition of the dataset.
+
+    ``batch_size`` is the GLOBAL batch, the config's (the loader's
+    convention): the JAX package's trainer hands the same number to its
+    form as the host-local batch, so its global batch grows with the
+    process count (ROADMAP.md, queue 3)."""
+
+    def __init__(self, packed_local: dict, *, device, rank: int, world: int,
+                 global_length: int):
+        super().__init__(packed_local, device=device)
+        if global_length % world or self.length != global_length // world:
+            raise ValueError(f"{self.length} local scenes are not 1/{world} "
+                             f"of {global_length}")
+        self.per_device = self.length
+        self.global_length = global_length
+        self.rank, self.world = rank, world
+
+    @staticmethod
+    def local_scene_range(total: int, rank: int,
+                          world: int) -> tuple[int, int]:
+        """[lo, hi) of the scenes rank ``rank`` packs: its contiguous block
+        of the ``total // world * world`` scenes kept."""
+        m = total // world
+        return rank * m, (rank + 1) * m
+
+    def index_batches(self, batch_size: int, *, seed: int = 1234,
+                      epoch0: int = 0):
+        """Infinite stream of this rank's (batch_size / world,) int32 LOCAL
+        index batches, ``per_device // (batch_size / world)`` an epoch."""
+        if batch_size % self.world:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{self.world} ranks")
+        b = batch_size // self.world
+        m = self.per_device
+        epoch = epoch0
+        while True:
+            rng = np.random.default_rng(seed + epoch)
+            # one shuffled pass over every rank's block an epoch
+            perm = [rng.permutation(m) for _ in range(self.world)][self.rank]
+            for k in range(m // b):
+                yield perm[k * b:(k + 1) * b].astype(np.int32)
             epoch += 1

@@ -4,6 +4,10 @@
 Replaces the reference's torch ``DataLoader`` (reference
 dataset/stereo_datasets.py:484-491) with a dependency-free threaded loader:
 
+* per-rank sharding (``shard_id`` / ``num_shards``): each rank of a
+  data-parallel run reads a disjoint slice of every epoch's permutation,
+  ``perm[shard_id::num_shards]`` -- the replacement for DataParallel's
+  scatter;
 * worker threads decode + augment (numpy releases the GIL in its C loops)
   into a bounded prefetch queue of ready NHWC numpy batches;
 * fixed shapes (crop sizes) per batch: every epoch is a fresh permutation
@@ -12,9 +16,8 @@ dataset/stereo_datasets.py:484-491) with a dependency-free threaded loader:
   per-sample augmentation RNG ``default_rng((seed, epoch, index))``, the
   same stream as the JAX package's loader.
 
-The JAX loader's per-host sharding (``shard_id`` / ``num_shards``) and its
-unshuffled or ragged-batch modes are left out: the port trains on one card
-and its trainer shuffles and drops the last partial batch.
+The JAX loader's unshuffled and ragged-batch modes are left out: the
+trainer shuffles and drops the last partial batch.
 """
 
 from __future__ import annotations
@@ -33,9 +36,12 @@ class StereoDataLoader:
     """Iterable over (files, img1, img2, flow, valid) NHWC numpy batches."""
 
     def __init__(self, dataset, batch_size: int, *,
-                 num_workers: int | None = None, seed: int = 1234):
+                 num_workers: int | None = None, seed: int = 1234,
+                 shard_id: int = 0, num_shards: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shard_id = shard_id
+        self.num_shards = num_shards
         if num_workers is None:
             # reference: SLURM_CPUS_PER_TASK - 2, default 6 - 2
             num_workers = max(1, int(os.environ.get("SLURM_CPUS_PER_TASK", 6)) - 2)
@@ -44,7 +50,13 @@ class StereoDataLoader:
         self.epoch = 0
 
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        return len(self.dataset) // self.num_shards // self.batch_size
+
+    def _epoch_indices(self, epoch: int):
+        """This shard's disjoint slice of the epoch's shared permutation."""
+        idx = np.random.default_rng(self.seed + epoch).permutation(
+            len(self.dataset))
+        return idx[self.shard_id::self.num_shards]
 
     def __iter__(self):
         # the epoch advances HERE, when the iterator is created -- an explicit
@@ -53,8 +65,10 @@ class StereoDataLoader:
         # consumer abandons the iterator mid-epoch
         epoch = self.epoch
         self.epoch += 1
-        indices = np.random.default_rng(self.seed + epoch).permutation(
-            len(self.dataset))
+        indices = self._epoch_indices(epoch)
+        # len(self), not len(indices): a shard one index longer than the
+        # others would take one more batch, and its rank would wait at a
+        # collective the others never reach
         nb = len(self)
         if nb == 0:
             return iter(())
@@ -122,9 +136,13 @@ class StereoDataLoader:
         return gen()
 
 
-def fetch_dataloader(exp_config, *, raw: bool = False) -> StereoDataLoader:
-    """Reference fetch_dataloader (stereo_datasets.py:411-494) equivalent:
-    ``train.batch_size`` samples a step from ``train.datasets``.
+def fetch_dataloader(exp_config, *, raw: bool = False, shard_id: int = 0,
+                     num_shards: int = 1) -> StereoDataLoader:
+    """Reference fetch_dataloader (stereo_datasets.py:411-494) equivalent.
+
+    The config's ``train.batch_size`` is the GLOBAL batch (reference
+    DataParallel semantics): with ``num_shards`` ranks each loader yields
+    ``batch_size / num_shards`` samples a step from its disjoint shard.
 
     ``raw=True``: no host augmentors and uint8 images -- full-size samples
     for the on-device augmentation path (data/device_augment.py).
@@ -140,4 +158,9 @@ def fetch_dataloader(exp_config, *, raw: bool = False) -> StereoDataLoader:
                   else [dataset])
         for d in leaves:
             d.out_dtype = np.uint8
-    return StereoDataLoader(dataset, exp_config.train.batch_size)
+    gb = exp_config.train.batch_size
+    if gb % num_shards:
+        raise ValueError(f"global batch {gb} not divisible by {num_shards} "
+                         "ranks")
+    return StereoDataLoader(dataset, gb // num_shards, shard_id=shard_id,
+                            num_shards=num_shards)

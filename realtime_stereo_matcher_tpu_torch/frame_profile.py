@@ -3,6 +3,7 @@ kernel.
 
     python -m realtime_stereo_matcher_tpu_torch.frame_profile [--model v1|v2|v3|v4|dispnetc] [--frames 8]
     python -m realtime_stereo_matcher_tpu_torch.frame_profile --train [--model v1|v2|v3|v4|dispnetc] [--frames 4]
+    python -m realtime_stereo_matcher_tpu_torch.frame_profile --train --dp [--model v1|v2|v3] [--frames 4]
 
 Builds the model (v1 by default, or v2 or v3) as ``bench.py`` does, runs
 ``--frames`` frames of the bf16 kernel path under ``torch.profiler`` after
@@ -19,6 +20,13 @@ With ``--train`` the unit is one bf16 kernel-path training step of the
 model's repo config and its train section (v1: batch 4, 480 x 640; v2 and
 v3: batch 8, 240 x 320; seeded synthetic scenes, weights from the
 train-start init), after two warm-up steps.
+
+With ``--train --dp`` the step is the data-parallel one
+(``make_fast_train_step(..., group=...)``) as the one rank of a NCCL group
+in this process: the one-process step's work plus every collective of the
+data-parallel step, trivial at one rank, so the difference from ``--train``
+is the collectives' cost; ``collectives`` then gives their count and the
+host ms of their ``c10d::`` ops per step.
 
 MobileStereoNetV4 (``v4``) and MobileDispNetC (``dispnetc``) have no
 kernel path: their frame is the plain forward and their step the plain
@@ -43,6 +51,12 @@ from realtime_stereo_matcher_tpu_torch.models import build_model
 from realtime_stereo_matcher_tpu_torch.models.fast_infer import make_fast_forward
 from realtime_stereo_matcher_tpu_torch.models.fast_train import (
     make_fast_train_step,
+)
+from realtime_stereo_matcher_tpu_torch.parallel.distributed import (
+    default_group,
+    free_port,
+    init_group,
+    shutdown,
 )
 from realtime_stereo_matcher_tpu_torch.train.trainer import (
     create_train_state,
@@ -156,15 +170,17 @@ def frame_fn(dev, seed, model="v1"):
     return lambda: forward(left, right)
 
 
-def train_step_fn(dev, seed, model="v1"):
+def train_step_fn(dev, seed, model="v1", group=None):
     """One bf16 kernel-path training step of ``model``'s repo config (the
-    plain step for V4 and DispNetC)."""
+    plain step for V4 and DispNetC), data-parallel over ``group`` where
+    given."""
     plain = model in PLAIN_MODELS
     cfg = load_config(PLAIN_MODELS[model] if plain else bench.MODELS[model][0])
     model, tx, _, state = create_train_state(cfg, seed=seed, device=dev)
     step = (make_train_step(model, tx, cfg.train.loss.parameters,
-                            dtype=torch.bfloat16) if plain
-            else make_fast_train_step(model, tx, cfg.train.loss.parameters))
+                            dtype=torch.bfloat16, group=group) if plain
+            else make_fast_train_step(model, tx, cfg.train.loss.parameters,
+                                      group=group))
     h, w = cfg.data.image_size
     # scenes up to 96 px of disparity at 640 px wide, as wide at 320
     data = SyntheticBatches(cfg.train.batch_size, (h, w), seed0=seed,
@@ -191,11 +207,16 @@ def profile_device(run, frames: int) -> dict:
 
     time_us = collections.Counter()
     count = collections.Counter()
+    collective_us, collectives = 0.0, 0
     routes = {}
     narrow_us = collections.Counter()  # by route, pairs other than 32 -> 32
     narrow_n = collections.Counter()
     starts, ends = [], []
     for evt in prof.events():
+        if (evt.device_type == torch.autograd.DeviceType.CPU
+                and evt.name.startswith("c10d::")):  # a collective's host op
+            collective_us += evt.time_range.elapsed_us()
+            collectives += 1
         # device kernels only: a user annotation (the optimizer's step
         # range) spans kernels that are counted themselves
         if (evt.device_type != torch.autograd.DeviceType.CUDA
@@ -224,21 +245,27 @@ def profile_device(run, frames: int) -> dict:
               for r in ("tensor cores", "cuda cores")}
     return {"device_ms_per_frame": sum(time_us.values()) / 1e3 / frames,
             "span_ms_per_frame": (max(ends) - min(starts)) / 1e3 / frames,
-            "groups": groups, "narrow_pairs": narrow}
+            "groups": groups, "narrow_pairs": narrow,
+            "collectives": {"per_frame": collectives / frames,
+                            "host_ms_per_frame": collective_us / 1e3 / frames}}
 
 
 def profile_frames(frames: int = 8, seed: int = 0, train: bool = False,
-                   model: str = "v1") -> dict:
+                   model: str = "v1", group=None) -> dict:
     dev = torch.device("cuda", 0)
-    run = (train_step_fn if train else frame_fn)(dev, seed, model)
+    run = (train_step_fn(dev, seed, model, group) if train
+           else frame_fn(dev, seed, model))
     prof = profile_device(run, frames)
-    return {"unit": "train step" if train else "frame", "frames": frames,
+    return {"unit": ("data-parallel train step (1 rank)" if group is not None
+                     else "train step" if train else "frame"),
+            "frames": frames,
             "model": model, "device": torch.cuda.get_device_name(dev),
             "device_ms_per_frame": prof["device_ms_per_frame"],
             "span_ms_per_frame": prof["span_ms_per_frame"],
             "busy_share": (prof["device_ms_per_frame"]
                            / prof["span_ms_per_frame"]),
-            "groups": prof["groups"], "narrow_pairs": prof["narrow_pairs"]}
+            "groups": prof["groups"], "narrow_pairs": prof["narrow_pairs"],
+            "collectives": prof["collectives"]}
 
 
 def main(argv=None) -> int:
@@ -250,12 +277,26 @@ def main(argv=None) -> int:
     ap.add_argument("--model", choices=sorted([*bench.MODELS, *PLAIN_MODELS]),
                     default="v1",
                     help="model of the frame or training step")
+    ap.add_argument("--dp", action="store_true",
+                    help="with --train: the data-parallel step as the one "
+                         "rank of a NCCL group")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("frame_profile: CUDA is not available", file=sys.stderr)
         return 1
-    print(json.dumps(profile_frames(args.frames, train=args.train,
-                                    model=args.model)))
+    if args.dp and not args.train:
+        ap.error("--dp profiles a training step: give --train")
+    if not args.dp:
+        print(json.dumps(profile_frames(args.frames, train=args.train,
+                                        model=args.model)))
+        return 0
+    init_group(f"localhost:{free_port()}", 1, 0, backend="nccl")
+    try:
+        print(json.dumps(profile_frames(args.frames, train=True,
+                                        model=args.model,
+                                        group=default_group())))
+    finally:
+        shutdown()
     return 0
 
 

@@ -44,6 +44,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from realtime_stereo_matcher_tpu_torch import stats_dtype
 from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
     ConvSpec,
     conv_spec,
@@ -131,11 +132,12 @@ def run_refine_stack(x: torch.Tensor, specs: Sequence[ConvSpec]) -> torch.Tensor
 
 
 def refine_inputs(disp, l_guide, r_guide, max_shift, dtype):
-    """A RefineNet's inputs: the float32 disparity 2x-upsampled, and the
-    guides at its size in ``dtype``, the right one (if any) warped by it
-    with the banded warp at ``max_shift``.  Returns (disp, [guides])."""
+    """A RefineNet's inputs: the float32 (float64 for float64) disparity
+    2x-upsampled, and the guides at its size in ``dtype``, the right one
+    (if any) warped by it with the banded warp at ``max_shift``.  Returns
+    (disp, [guides])."""
     h2, w2 = disp.shape[1] * 2, disp.shape[2] * 2
-    disp = resize_bilinear(disp.float(), (h2, w2)) * 2.0
+    disp = resize_bilinear(disp.to(stats_dtype(disp.dtype)), (h2, w2)) * 2.0
     guides = [l_guide] if r_guide is None else [l_guide, r_guide]
     guides = [(g if g.shape[1:3] == (h2, w2)
                else resize_bilinear(g, (h2, w2))).to(dtype) for g in guides]

@@ -42,6 +42,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from realtime_stereo_matcher_tpu_torch import stats_dtype
 from realtime_stereo_matcher_tpu_torch.kernels import _build
 from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
     SMEM_RESERVED,
@@ -158,16 +159,11 @@ def dw_tc_plan(n: int, d: int, h: int, w: int, kd: int, dilation: int,
                   smem, grid[0] * grid[1] * grid[2] * 9 * cin * cout)
 
 
-def _acc_dtype(t: torch.Tensor) -> torch.dtype:
-    """float64 stays float64 (for gradcheck); everything else sums in float32."""
-    return torch.float64 if t.dtype == torch.float64 else torch.float32
-
-
 def dw_reduce_plain(x: torch.Tensor, g: torch.Tensor, dilation: int = 1):
     """Plain PyTorch version: ``torch.nn.grad.conv2d_weight`` in float32.
 
     x (N, H, W, C_in), g (N, H, W, C_out) -> (3, 3, C_in, C_out) float32."""
-    acc = _acc_dtype(x)
+    acc = stats_dtype(x.dtype)
     dw = torch.nn.grad.conv2d_weight(
         x.to(acc).permute(0, 3, 1, 2), (g.shape[-1], x.shape[-1], 3, 3),
         g.to(acc).permute(0, 3, 1, 2), padding=dilation, dilation=dilation)
@@ -179,7 +175,7 @@ def dw_reduce3d_plain(x: torch.Tensor, g: torch.Tensor):
     ``torch.nn.grad.conv3d_weight`` in float32.
 
     x (B, D, H, W, C_in), g (B, D, H, W, C_out) -> (3, 3, 3, C_in, C_out)."""
-    acc = _acc_dtype(x)
+    acc = stats_dtype(x.dtype)
     dw = torch.nn.grad.conv3d_weight(
         x.to(acc).permute(0, 4, 1, 2, 3), (g.shape[-1], x.shape[-1], 3, 3, 3),
         g.to(acc).permute(0, 4, 1, 2, 3), padding=1)

@@ -16,7 +16,9 @@ BatchNorm uses the torch defaults the JAX package pins: eps 1e-5 and
 momentum 0.1 (flax momentum 0.9).  In train mode it follows flax, not torch
 (:class:`BatchNorm2d`): the running variance takes the biased batch
 variance.  :class:`GroupedBatchNorm2d` normalizes two views stacked on the
-batch axis each by its own statistics (V4's siamese extractor).
+batch axis each by its own statistics (V4's siamese extractor).  Under
+:func:`synced_bn` (the data-parallel plain step) their train-mode
+statistics are the global batch's, summed over the ranks (sync-BN).
 
 MobileStereoNetV4's MobileNet blocks (:class:`MobileV2Residual`,
 :class:`ConvBNDws`, :class:`MobileV1Residual`) and the transposed conv of
@@ -27,11 +29,15 @@ reads (``torch_import._map_v4``).
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from realtime_stereo_matcher_tpu_torch import stats_dtype
+from realtime_stereo_matcher_tpu_torch.parallel.distributed import all_reduce_sum
 
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -74,18 +80,26 @@ class SameConv2d(nn.Conv2d):
         return super().forward(F.pad(x, (left, right, top, bottom)))
 
 
-def stats_dtype(dtype: torch.dtype) -> torch.dtype:
-    """The type BatchNorm statistics are taken in: float32, or float64 for
-    float64 inputs (flax promotes to at least float32)."""
-    return torch.promote_types(dtype, torch.float32)
-
-
-def batch_stats(y: torch.Tensor, dims) -> tuple[torch.Tensor, torch.Tensor]:
+def batch_stats(y: torch.Tensor, dims, group=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """flax train-mode statistics: mean and biased variance ``E[y^2] -
-    E[y]^2`` over ``dims``, in float32 (float64 for float64 ``y``)."""
+    E[y]^2`` over ``dims``, in float32 (float64 for float64 ``y``), as
+    ``mu = s / count`` and ``var = s2 / count - mu^2`` from the sums ``s``,
+    ``s2`` and the count.
+
+    The three go through one differentiable all-reduce over ``group`` (a
+    ``torch.distributed`` group; None: one process, no collective), so with
+    a group the statistics are the global batch's (sync-BN), the JAX
+    package's ``psum`` of its BatchNorm sums, and a group of one rank gives
+    the one-process numbers bit for bit."""
     yf = y.to(stats_dtype(y.dtype))
-    mu = yf.mean(dims)
-    return mu, (yf * yf).mean(dims) - mu * mu
+    s, s2 = yf.sum(dims), (yf * yf).sum(dims)
+    count = yf.new_full((1,), yf.numel() // max(s.numel(), 1))
+    packed = all_reduce_sum(torch.cat([s.reshape(-1), s2.reshape(-1), count]),
+                            group, what="batch-norm sums")
+    n = s.numel()
+    mu = packed[:n].view_as(s) / packed[2 * n]
+    return mu, packed[n:2 * n].view_as(s) / packed[2 * n] - mu * mu
 
 
 def running_update(old: torch.Tensor, batch: torch.Tensor) -> torch.Tensor:
@@ -104,11 +118,13 @@ class _FlaxBatchNorm:
     that the JAX package (the reference) does not have.  Eval mode is
     torch's."""
 
+    sync_group = None  # set by synced_bn: statistics over all ranks
+
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         dims = (0, *range(2, x.ndim))
-        mu, var = batch_stats(x, dims)
+        mu, var = batch_stats(x, dims, self.sync_group)
         var = var.clamp(min=0.0)  # flax clips round-off below zero
         with torch.no_grad():
             self.running_mean.copy_(running_update(self.running_mean, mu))
@@ -138,12 +154,16 @@ class GroupedBatchNorm2d(nn.BatchNorm2d):
     groups' updates one after the other, in closed form ``m^G r + sum_g
     m^(G-1-g) (1 - m) batch_g`` with ``m`` = 0.9: one batched pass equals G
     sequential passes of one BatchNorm, which is how the reference runs its
-    siamese extractor on the left view, then the right.  The output is ``x *
-    s + b`` with ``s = weight / sqrt(var + eps)`` and ``b = bias - mu * s``
-    cast to x's dtype, the JAX package's folded form.  Eval mode is torch's
-    running-stats affine, for any batch.  The variance is clipped at 0, as in
-    flax's BatchNorm.  A ``_BatchNorm``, so ``train/freeze.py`` freezes
-    it."""
+    siamese extractor on the left view, then the right.  Under
+    :func:`synced_bn` each group's statistics are taken over that group of
+    every rank (the ranks' left views, then their right views).  The output
+    is ``x * s + b`` with ``s = weight / sqrt(var + eps)`` and ``b = bias -
+    mu * s`` cast to x's dtype, the JAX package's folded form.  Eval mode is
+    torch's running-stats affine, for any batch.  The variance is clipped at
+    0, as in flax's BatchNorm.  A ``_BatchNorm``, so ``train/freeze.py``
+    freezes it."""
+
+    sync_group = None  # set by synced_bn: statistics over all ranks
 
     def __init__(self, num_features: int, groups: int = 2, **kw):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM, **kw)
@@ -156,12 +176,11 @@ class GroupedBatchNorm2d(nn.BatchNorm2d):
         if x.shape[0] % g:
             raise ValueError(f"batch {x.shape[0]} is not {g} equal groups")
         xg = x.reshape(g, -1, *x.shape[1:])             # (G, b, C, H, W)
-        xf = xg.to(stats_dtype(x.dtype))
         dims = (1, *range(3, xg.ndim))
-        mu = xf.mean(dims)                               # (G, C)
+        mu, var = batch_stats(xg, dims, self.sync_group)  # (G, C)
         # clipped at 0 as flax's BatchNorm clips it (the JAX package's
         # GroupedBatchNorm does not: a round-off below -eps gives NaN)
-        var = ((xf * xf).mean(dims) - mu * mu).clamp(min=0.0)
+        var = var.clamp(min=0.0)
         with torch.no_grad():
             m = 1.0 - BN_MOMENTUM
             w = m ** torch.arange(g - 1, -1, -1, dtype=mu.dtype,
@@ -176,6 +195,24 @@ class GroupedBatchNorm2d(nn.BatchNorm2d):
         shape = (g, 1, c) + (1,) * (x.ndim - 2)
         y = xg * s.view(shape).to(x.dtype) + b.view(shape).to(x.dtype)
         return y.reshape(x.shape)
+
+
+@contextlib.contextmanager
+def synced_bn(model: nn.Module, group):
+    """Sync-BN for the block: every train-mode :class:`BatchNorm2d`,
+    :class:`BatchNorm3d` and :class:`GroupedBatchNorm2d` of ``model`` takes
+    its statistics over the global batch of ``group``'s ranks
+    (:func:`batch_stats`), as the JAX package's Flax path does under
+    jit-level batch sharding.  ``group=None`` changes nothing."""
+    bns = [m for m in model.modules()
+           if isinstance(m, (_FlaxBatchNorm, GroupedBatchNorm2d))]
+    for m in bns:
+        m.sync_group = group
+    try:
+        yield model
+    finally:
+        for m in bns:
+            del m.sync_group
 
 
 def batch_norm2d(channels: int, groups: int = 1) -> nn.Module:

@@ -24,6 +24,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from realtime_stereo_matcher_tpu_torch import stats_dtype
+
 # fill value of the difference volume where the shifted pixel is off-image
 DIFFERENCE_FILL = 1.0
 
@@ -70,15 +72,15 @@ def difference_cost_volume(left: torch.Tensor, right: torch.Tensor,
 def soft_argmin(cost: torch.Tensor, axis: int = 1, *, keepdims: bool = False):
     """Softmax-weighted expected disparity ``sum_d d * softmax(cost)[d]``.
 
-    The softmax runs in float32 whatever ``cost``'s type; the result is cast
-    back to it.  Higher cost = more weight (reference
-    model/mobile_stereo_net.py:144-147).
+    The softmax runs in float32 whatever ``cost``'s type (float64 for
+    float64); the result is cast back to it.  Higher cost = more weight
+    (reference model/mobile_stereo_net.py:144-147).
     """
     d = cost.shape[axis]
-    p = torch.softmax(cost.float(), dim=axis)
+    p = torch.softmax(cost.to(stats_dtype(cost.dtype)), dim=axis)
     shape = [1] * cost.ndim
     shape[axis] = d
-    disps = torch.arange(d, dtype=torch.float32, device=cost.device).reshape(shape)
+    disps = torch.arange(d, dtype=p.dtype, device=cost.device).reshape(shape)
     out = torch.sum(p * disps, dim=axis, keepdim=keepdims)
     return out.to(cost.dtype)
 
@@ -104,11 +106,12 @@ def correlation_cost_volume(left: torch.Tensor, right: torch.Tensor,
     Args:
       left, right: (B, H, W, C) features.
     Returns:
-      (B, D, H, W) in left's dtype; the products are summed in float32 and
-      scaled by 1 / C, as the JAX package's float32-accumulated matmul is.
+      (B, D, H, W) in left's dtype; the products are summed in float32
+      (float64 for float64) and scaled by 1 / C, as the JAX package's
+      float32-accumulated matmul is.
     """
     b, h, w, c = left.shape
-    lf, rf = left.float(), right.float()
+    lf, rf = (t.to(stats_dtype(t.dtype)) for t in (left, right))
     out = lf.new_zeros((b, max_disp, h, w))
     for d in range(min(max_disp, w)):
         out[:, d, :, d:] = (lf[:, :, d:] * rf[:, :, :w - d]).sum(-1) * (1.0 / c)
@@ -136,17 +139,18 @@ def soft_argmin_trilinear(vol: torch.Tensor, out_d: int, out_hw) -> torch.Tensor
     As in the JAX package: the spatial bilinear resize runs in ``vol``'s
     dtype (the reference upsamples under fp16 autocast), the depth lerp
     ``l0 + t * (l1 - l0)`` in float32 with the source index clamped at 0
-    (align_corners=False), and the softmax and the expectation in float32.
+    (align_corners=False), and the softmax and the expectation in float32
+    (float64 for a float64 ``vol``; the lerp's weights stay float32).
     Bilinear and depth-linear interpolation commute, so spatial-then-depth
     is the trilinear resize.  The depth lerp gathers its two taps (CUDA's
     1D linear resize runs one thread per output position, a loop over
     every pixel, ~100 ms at 720p).
 
-    Returns (B, H, W) float32 expected disparity.
+    Returns (B, H, W) float32 (float64) expected disparity.
     """
     with torch.autocast(vol.device.type, enabled=False):
         v = F.interpolate(vol, size=tuple(out_hw), mode="bilinear",
-                          align_corners=False).float()
+                          align_corners=False).to(stats_dtype(vol.dtype))
     i0, i1, t = _depth_lerp(vol.shape[1], out_d, vol.device)
     l0 = v.index_select(1, i0)
     logits = l0 + t[:, None, None] * (v.index_select(1, i1) - l0)

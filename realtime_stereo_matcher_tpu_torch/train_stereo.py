@@ -12,6 +12,21 @@ the config's ``model.mixed_precision`` is set (the default) unless
 the reference loop takes).  It runs on the card unless ``--device cpu`` is
 given, and raises when CUDA is asked for and absent.  Checkpoints and the
 metric log go under the config's ``path``.
+
+Data-parallel training: start one process per rank, each with
+``RSM_COORDINATOR`` (host:port of rank 0's rendezvous),
+``RSM_NUM_PROCESSES`` and ``RSM_PROCESS_ID``, as for the JAX package's
+``train_stereo.py``::
+
+    for r in 0 1; do RSM_COORDINATOR=localhost:29500 RSM_NUM_PROCESSES=2 \
+        RSM_PROCESS_ID=$r python -m realtime_stereo_matcher_tpu_torch.train_stereo \
+        --exp_config_json=... & done; wait
+
+The process group is joined before any device use
+(``parallel/distributed.py`` ``initialize``); rank r trains on
+``cuda:{r % device_count}`` (over NCCL with a card a rank, over gloo where
+ranks share a card) and the config's ``train.batch_size`` is the global
+batch.  A failed rendezvous or a rank that dies fails the run.
 """
 
 from __future__ import annotations
@@ -19,7 +34,16 @@ from __future__ import annotations
 import argparse
 import logging
 
+import torch
+import torch.distributed as dist
+
 from realtime_stereo_matcher_tpu_torch.config import load_config
+from realtime_stereo_matcher_tpu_torch.parallel.distributed import (
+    default_group,
+    initialize,
+    rank_and_world,
+    shutdown,
+)
 from realtime_stereo_matcher_tpu_torch.train.trainer import train
 from realtime_stereo_matcher_tpu_torch.utils.logger import setup_basic_logging
 
@@ -46,11 +70,22 @@ def main(argv=None, **train_kwargs) -> str:
     hooks)."""
     args = parse_args(argv)
     setup_basic_logging()
-    exp_config = load_config(args.exp_config_json)
-    final_ckpt = train(exp_config, max_steps=args.max_steps,
-                       use_bf16=args.bf16, device=args.device, **train_kwargs)
-    logging.info("Final checkpoint: %s", final_ckpt)
-    return final_ckpt
+    device = torch.device(args.device)
+    joined_before = dist.is_initialized()
+    distributed = initialize(device=device)  # before any device use
+    try:
+        if distributed and device.type == "cuda" and device.index is None:
+            rank, _ = rank_and_world(default_group())
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        exp_config = load_config(args.exp_config_json)
+        final_ckpt = train(exp_config, max_steps=args.max_steps,
+                           use_bf16=args.bf16, device=device, **train_kwargs)
+        logging.info("Final checkpoint: %s", final_ckpt)
+        return final_ckpt
+    finally:
+        if distributed and not joined_before:
+            shutdown()
 
 
 if __name__ == "__main__":

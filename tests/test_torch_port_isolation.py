@@ -116,6 +116,16 @@ V4_DISPNETC_MODULES = (
 )
 
 
+# the data-parallel slice's modules, named for the same reason
+PARALLEL_MODULES = (
+    "realtime_stereo_matcher_tpu_torch.parallel",
+    "realtime_stereo_matcher_tpu_torch.parallel.comm_audit",
+    "realtime_stereo_matcher_tpu_torch.parallel.distributed",
+    "realtime_stereo_matcher_tpu_torch.parallel.mesh",
+    "realtime_stereo_matcher_tpu_torch.parallel.scaling_bench",
+)
+
+
 def test_imports_with_jax_blocked():
     """Every port module and chip_smoke import with the banned names made
     unimportable, so no import reaches them, directly or transitively."""
@@ -124,6 +134,7 @@ def test_imports_with_jax_blocked():
     assert set(EVAL_MODULES) <= set(_module_names())
     assert set(TRAIN_DATA_MODULES) <= set(_module_names())
     assert set(V4_DISPNETC_MODULES) <= set(_module_names())
+    assert set(PARALLEL_MODULES) <= set(_module_names())
     code = (
         "import importlib, sys\n"
         f"banned = {BANNED!r}\n"
