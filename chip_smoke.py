@@ -6,8 +6,8 @@
 
 The second form runs only the committed v2 synthetic training config as
 committed (``time_train_config``) and prints its timing; the first runs
-every phase below.  ``--only v4 dispnetc data_parallel`` runs those phases
-alone.
+every phase below.  ``--only v4 dispnetc data_parallel sharded
+classical_export`` runs those phases alone.
 
 Runs on one NVIDIA Hopper card (it exits non-zero at once without CUDA) and
 imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
@@ -174,11 +174,51 @@ imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
     both ranks, falling, equal final parameter hashes, the step median.
     (d) ``parallel.scaling_bench`` at 720p bf16, 2 frames a rank, at every
     rank count up to the cards of the machine.
+10e. sharded (``--only sharded`` runs it alone; on a machine of four
+    cards for the latency curve): the kernels built once, then two ranks of this
+    script (``--dp-rank sharded``, NCCL with a card a rank, gloo on one
+    shared card) run ``parallel.sharded_infer.make_sharded_infer`` on the
+    same frames as this process runs the one-process forwards: v1 from its
+    repo config (hidden 32, max_disp 192, seeded weights) at 1280 x 720 on
+    the bf16 kernel path (the main path), the float32 kernel path and the
+    plain float32 model (TF32 off); v2 and v3 from their configs on the
+    bf16 kernel path at 720p; the trained V4 (``held_out.json``) at 384 x
+    1280 (two row shards) in float32 and bf16 autocast, and at 720p in
+    bf16 (one row shard, the shifts over both ranks), on held-out
+    synthetic scenes.  Held: every rank the same maps; float32 within rtol
+    1e-4 / atol 1e-4 of one process; bf16 median |d| within 0.05 px of the
+    one-process bf16 frame and under 1 px of float32; every rank's v1
+    frame K1 56 / K2 6 / K3 5 launches; V4 none, and its shard counts.
+    Printed: each forward's shard counts and errors, rank 0's collective
+    audit of one v1 bf16 frame (count and bytes of every halo, gather and
+    reduction), and ``scaling_bench.sharded_latency`` of v1 (bf16 kernel
+    path) and V4 (bf16) at 720p at every rank count up to the cards (one
+    rank: the one-process frame) by CUDA events; on a machine of two cards
+    or more, rank 0's profile of a v1 bf16 720p frame over one and two
+    ranks (``scaling_bench.sharded_profile``: device ms by kind of kernel,
+    the collectives, the span).
+10f. classical export (``--only classical_export``): the SGBM baseline
+    built by g++ here and run by ``validate_synthetic`` on the first 3
+    held-out scenes at ``num_of_disps=80``, its maps bit for bit those the
+    CPU made (``held_out.json``'s hash), its EPE and D1 within 1e-6
+    relative of the CPU's (numpy's float32 mean follows the host's SIMD
+    width), and its seconds; the
+    trained v2 exported at 320 x 448 (``torch.export``), saved, loaded and
+    run on the card within rtol 1e-4 / atol 1e-2 of eager; ``aot_compile``
+    of v1 at 720p (a CUDA graph of the plain float32 forward) against
+    eager, both timed, and another shape refused; ``get_model_capacity``
+    of v1 at 720p; a ``trace`` of one v1 bf16 frame, whose Chrome trace
+    must name K1 56, K2 6 and K3 5 times; ``infer.main`` with Pillow and
+    cv2 blocked on two PNGs the port's writer made of a held-out scene,
+    the trained v2 (kernel path) and the default SGBM config: PFMs and
+    PNGs written, v2's PFM within 1e-4 px of ``evaluate``'s runner on
+    that pair.
 11. report: one ``{"kernels": [...]}`` line (each kernel's
     ``launches_by_path`` with ``eval_v2`` / ``eval_v3``, its launches a
     frame of the eval phase, ``train_config_v2``, its launches in the 99
     steps of phase 10b, ``v4`` / ``dispnetc``, 0 in phase 10c, and
-    ``data_parallel``, rank 0's in the 20 steps of phase 10d (c)), one
+    ``data_parallel``, rank 0's in the 20 steps of phase 10d (c), and
+    ``sharded``, rank 0's in one sharded v1 bf16 frame of phase 10e), one
     latency line (the eval metrics under
     ``eval``, phase 10b's under ``train_config_v2``), the ``nvidia-smi``
     name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -204,6 +244,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -211,8 +252,10 @@ from realtime_stereo_matcher_tpu_torch import (
     bench,
     evaluate,
     frame_profile,
+    infer,
     train_stereo,
 )
+from realtime_stereo_matcher_tpu_torch.classical.sgbm import SGBMModule
 from realtime_stereo_matcher_tpu_torch.config import load_config
 from realtime_stereo_matcher_tpu_torch.data.device_augment import (
     N_UNIFORMS,
@@ -233,6 +276,12 @@ from realtime_stereo_matcher_tpu_torch.data.synthetic import (
     make_scene,
 )
 from realtime_stereo_matcher_tpu_torch.eval import validators
+from realtime_stereo_matcher_tpu_torch.export import (
+    aot_compile,
+    export_stereo_model,
+    load_exported,
+    make_serving_fn,
+)
 from realtime_stereo_matcher_tpu_torch.kernels import _build
 from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
     fused_conv3x3,
@@ -267,6 +316,7 @@ from realtime_stereo_matcher_tpu_torch.models.fast_train import (
 from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
     refine_max_shifts,
 )
+from realtime_stereo_matcher_tpu_torch.ops import InputPadder
 from realtime_stereo_matcher_tpu_torch.parallel.comm_audit import audit
 from realtime_stereo_matcher_tpu_torch.parallel.distributed import (
     ENV_PROCESS_ID,
@@ -283,6 +333,11 @@ from realtime_stereo_matcher_tpu_torch.parallel.mesh import (
 )
 from realtime_stereo_matcher_tpu_torch.parallel.scaling_bench import (
     scaling_efficiency,
+    sharded_latency,
+    sharded_profile,
+)
+from realtime_stereo_matcher_tpu_torch.parallel.sharded_infer import (
+    make_sharded_infer,
 )
 from realtime_stereo_matcher_tpu_torch.train import trainer
 from realtime_stereo_matcher_tpu_torch.train.loss import build_loss_function
@@ -293,7 +348,14 @@ from realtime_stereo_matcher_tpu_torch.train.trainer import (
     restore_checkpoint,
     train,
 )
+from realtime_stereo_matcher_tpu_torch.utils import native_build
 from realtime_stereo_matcher_tpu_torch.utils.logger import setup_basic_logging
+from realtime_stereo_matcher_tpu_torch.utils.pfm import read_pfm
+from realtime_stereo_matcher_tpu_torch.utils.png import read_png, write_png
+from realtime_stereo_matcher_tpu_torch.utils.profiler import (
+    get_model_capacity,
+    trace,
+)
 
 SEED = 0
 HW = (720, 1280)
@@ -3138,10 +3200,439 @@ def check_data_parallel(device, smi: str) -> dict:
         scaling=scaling, step_check_s=step_s)
 
 
+# ---------------------------------------------------------------------------
+# 10e. sharded inference over ranks
+# ---------------------------------------------------------------------------
+
+SH_WORLD = 2
+SH_DIR = ROOT / "_runs" / "chip_smoke_sharded"
+SH_RANKS_TIMEOUT_S = 600.0
+# V4's two sizes: 384 x 1280 (24 floor rows: two row shards on 2 ranks) and
+# 720p (45 floor rows: one row shard, the shifts over both ranks)
+SH_V4_HW = ((384, 1280), HW)
+# the JAX package's sharded-forward tolerance (tests/test_sharded_infer.py)
+SH_F32_TOL = (1e-4, 1e-4)  # (atol, rtol)
+# bf16 kernel path: median |d| against the one-process bf16 frame, and
+# against float32 (tests/test_fast_infer.py:39-48)
+SH_BF16_MEDIAN_PX, SH_F32_MEDIAN_PX = 0.05, 1.0
+
+
+def _sh_frames() -> dict:
+    """The phase's frames on the CPU: seeded 720p noise for v1 / v2 / v3,
+    a held-out synthetic scene at each of ``SH_V4_HW`` for the trained
+    V4."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    frames = {"noise": tuple(torch.rand((1, *HW, 3), generator=gen) * 255
+                             for _ in range(2))}
+    for hw in SH_V4_HW:
+        _, left, right, _, _ = SyntheticStereo(
+            aug_params=None, length=1, seed0=10 ** 6, image_hw=hw,
+            max_disp=64.0)[0]
+        frames[hw] = tuple(torch.from_numpy(np.asarray(a, np.float32))[None]
+                           for a in (left, right))
+    return frames
+
+
+def _trained(device, name: str):
+    """The trained ``name`` of ``held_out.json``: its config and model."""
+    entry = json.loads(HELD_OUT.read_text())[name]
+    cfg = load_config(ROOT / entry["config"])
+    model = build_model(cfg.model.as_dict(), device=device)
+    load_weights(ROOT / entry["weights"], model)
+    return cfg, model.eval()
+
+
+def _sh_forwards(device, frames, group) -> dict:
+    """Every forward of the phase, sharded over ``group`` (None: this
+    process alone, the one-process frames): name -> {"out", "launches",
+    "shards"}; the v1 bf16 frame's collectives audited."""
+    out = {}
+
+    def run(name, fwd, left, right, audited=False):
+        left, right = left.to(device), right.to(device)
+        fwd(left, right)  # warm-up: plans, the halos' buffers
+        torch.cuda.synchronize()
+        _build.LAUNCHES.clear()
+        if audited:
+            report = audit(fwd, left, right)
+            maps = report["result"]
+            out["audit"] = {k: report[k] for k in ("per_op", "per_what",
+                                                   "total_bytes")}
+        else:
+            maps = fwd(left, right)
+        torch.cuda.synchronize()
+        out[name] = {"out": [m.float().cpu() for m in maps],
+                     "launches": dict(_build.LAUNCHES),
+                     "shards": {"spatial": fwd.n_spatial(left.shape[1]),
+                                "disp": fwd.n_disp}}
+
+    def sharded(model, **kw):
+        return make_sharded_infer(model, **kw) if group is not None else None
+
+    v1 = seeded_model(device, "v1")
+    noise = frames["noise"]
+    for name, kw in (("v1 bf16", dict(fast=True, dtype=torch.bfloat16)),
+                     ("v1 f32 kernel", dict(fast=True, dtype=torch.float32)),
+                     ("v1 f32 plain", dict(fast=False))):
+        fwd = sharded(v1, **kw) or _one_process(v1, **kw)
+        run(name, fwd, *noise, audited=name == "v1 bf16" and group)
+    for name in ("v2", "v3"):
+        model = seeded_model(device, name)
+        fwd = sharded(model, fast=True) or _one_process(model, fast=True)
+        run(f"{name} bf16", fwd, *noise)
+        del model
+    _, v4 = _trained(device, "v4")
+    for hw in SH_V4_HW:
+        kinds = (("f32", False), ("bf16", "auto")) if hw != HW else (
+            ("bf16", "auto"),)
+        for key, fast in kinds:
+            fwd = sharded(v4, fast=fast) or _one_process(v4, fast=fast)
+            run(f"v4 {key} {hw[0]}x{hw[1]}", fwd, *frames[hw])
+    return out
+
+
+def _one_process(model, *, fast, dtype=torch.bfloat16):
+    """The one-process counterpart of ``make_sharded_infer(model, fast=,
+    dtype=)``: ``make_fast_forward`` on the kernel path, else the plain
+    model (autocast to ``dtype`` under ``"auto"`` for V4, as
+    ``ModelRunner``)."""
+    if fast is True:
+        fwd = make_fast_forward(model, dtype=dtype)
+    else:
+        auto = fast == "auto"
+
+        @torch.no_grad()
+        def fwd(left, right):
+            with torch.autocast("cuda", dtype=dtype, enabled=auto):
+                return model(left, right)
+    fwd.n_spatial = lambda h: 1
+    fwd.n_disp = 1
+    return fwd
+
+
+def _sh_rank(out_dir: pathlib.Path) -> None:
+    """A rank of phase 10e (``--dp-rank sharded``): every sharded forward
+    of the phase; results to ``rank<r>.pt``."""
+    initialize(device="cuda")
+    try:
+        rank = torch.distributed.get_rank()
+        device = _rank_device(rank)
+        frames = torch.load(out_dir / "frames.pt", weights_only=True)
+        out = _sh_forwards(device, {k if k == "noise" else tuple(
+            map(int, k.split("x"))): v for k, v in frames.items()},
+            default_group())
+        out["device"] = str(device)
+        out["backend"] = torch.distributed.get_backend()
+        torch.save(out, out_dir / f"rank{rank}.pt")
+    finally:
+        shutdown()
+
+
+def _median_px(got, want) -> float:
+    return float((got - want).abs().median())
+
+
+def check_sharded(device, smi: str) -> dict:
+    """Phase "sharded" (module docstring, phase 10e)."""
+    _build.build()  # here, once: each rank would build it again
+    shutil.rmtree(SH_DIR, ignore_errors=True)
+    SH_DIR.mkdir(parents=True)
+    frames = _sh_frames()
+    torch.save({k if k == "noise" else f"{k[0]}x{k[1]}": v
+                for k, v in frames.items()}, SH_DIR / "frames.pt")
+    t0 = time.perf_counter()
+    spawn_ranks([ROOT / "chip_smoke.py", "--dp-rank", "sharded", SH_DIR],
+                SH_WORLD, timeout=SH_RANKS_TIMEOUT_S, cwd=ROOT)
+    ranks_s = time.perf_counter() - t0
+    ranks = [torch.load(SH_DIR / f"rank{r}.pt", weights_only=True)
+             for r in range(SH_WORLD)]
+    one = _sh_forwards(device, frames, None)
+    log(f"  ranks: {[r['device'] for r in ranks]} over {ranks[0]['backend']}"
+        f" ({ranks_s:.1f} s)")
+    results, failures = {}, []
+    for name in [k for k in one if k != "audit"]:
+        want = one[name]["out"]
+        row = {"shards": ranks[0][name]["shards"]}
+        for r in ranks:
+            got = r[name]["out"]
+            for g, w in zip(got, ranks[0][name]["out"]):
+                if not torch.equal(g, w):
+                    failures.append(f"{name}: rank {r['device']} differs "
+                                    "from rank 0")
+            try:
+                if "bf16" in name:
+                    row["median_px"] = _median_px(got[-1], want[-1])
+                    if not row["median_px"] <= SH_BF16_MEDIAN_PX:
+                        raise AssertionError(
+                            f"{name}: median |d| {row['median_px']} px > "
+                            f"{SH_BF16_MEDIAN_PX} against one process")
+                else:
+                    row["max_abs_err"] = max(
+                        _compare(g, w, SH_F32_TOL, name)
+                        for g, w in zip(got, want))
+            except AssertionError as e:
+                failures.append(str(e))
+        row["launches"] = ranks[0][name]["launches"]
+        row["launches_one_process"] = one[name]["launches"]
+        results[name] = row
+    # bf16 against float32: the v1 kernel path and V4 at 384 x 1280
+    for bf, f32 in (("v1 bf16", "v1 f32 plain"),
+                    ("v4 bf16 384x1280", "v4 f32 384x1280")):
+        results[bf]["median_px_vs_f32"] = m = _median_px(
+            ranks[0][bf]["out"][-1], one[f32]["out"][-1])
+        if not m < SH_F32_MEDIAN_PX:
+            failures.append(f"{bf}: median |d| {m} px against float32")
+    for r in ranks:
+        for name in ("v1 bf16", "v1 f32 kernel"):
+            if r[name]["launches"] != LAUNCHES_PER_FRAME:
+                failures.append(f"{name} on {r['device']}: launches "
+                                f"{r[name]['launches']}, expected "
+                                f"{LAUNCHES_PER_FRAME}")
+    for name in ("v4 bf16 384x1280", "v4 bf16 720x1280"):
+        if any(r[name]["launches"] for r in ranks):
+            failures.append(f"{name}: a hand-written kernel launched")
+    if ranks[0]["v4 f32 384x1280"]["shards"]["spatial"] != 2 or \
+            ranks[0]["v4 bf16 720x1280"]["shards"] != {"spatial": 1,
+                                                       "disp": 2}:
+        failures.append(f"V4 shard counts: {results}")
+    log(f"  sharded forwards against one process: {json.dumps(results)}")
+    log(f"  collective audit of one sharded v1 bf16 frame (rank 0): "
+        f"{json.dumps(ranks[0]['audit'])}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    shutil.rmtree(SH_DIR)
+
+    cards = torch.cuda.device_count()
+    latency = {}
+    for name in ("v1", "v4"):
+        latency[name] = {n: s * 1e3 for n, s in sharded_latency(
+            model=name, image_hw=HW, iters=8).items()}
+    log(f"  sharded single-image 720p latency, ms by rank count (1: one "
+        f"process; {cards} card(s)): {json.dumps(latency)} | {smi}")
+    # where a sharded v1 frame's time goes, beside the one-process frame's
+    # (ranks a card each: only on a machine of SH_WORLD cards or more)
+    profiles = {n: _profile_summary(sharded_profile(n, model="v1",
+                                                    image_hw=HW, frames=4))
+                for n in ((1, SH_WORLD) if cards >= SH_WORLD else ())}
+    if profiles:
+        log(f"  profile of a 720p v1 bf16 frame (rank 0), by rank count: "
+            f"{json.dumps(profiles)} | {smi}")
+    return dict(launches=ranks[0]["v1 bf16"]["launches"], forwards=results,
+                audit=ranks[0]["audit"], backend=ranks[0]["backend"],
+                devices=[r["device"] for r in ranks], ranks_s=ranks_s,
+                latency_ms=latency, profile=profiles)
+
+
+def _profile_summary(prof: dict, top: int = 8) -> dict:
+    """A frame's ``frame_profile.profile_device`` record in brief: device
+    ms and span a frame, the collectives, device ms and launches by kind
+    (the port's kernels, NCCL's, copies and concatenations, the rest) and
+    the ``top`` groups."""
+    kinds = {}
+    for g, v in prof["groups"].items():
+        kind = ("port kernels" if v["route"] != "plain" else
+                "nccl" if "nccl" in g.lower() else
+                "copies" if any(k in g.lower() for k in ("copy", "cat"))
+                else "other")
+        k = kinds.setdefault(kind, {"ms": 0.0, "launches": 0.0})
+        k["ms"] += v["ms_per_frame"]
+        k["launches"] += v["launches_per_frame"]
+    return {"device_ms": prof["device_ms_per_frame"],
+            "span_ms": prof["span_ms_per_frame"],
+            "collectives": prof["collectives"], "by_kind": kinds,
+            "top": dict(list(prof["groups"].items())[:top])}
+
+
+# ---------------------------------------------------------------------------
+# 10f. SGBM, export, the profiler and infer
+# ---------------------------------------------------------------------------
+
+EXPORT_HW = (320, 448)
+EXPORT_TOL = (1e-2, 1e-4)  # (atol, rtol): the JAX package's export check
+CE_DIR = ROOT / "_runs" / "chip_smoke_classical_export"
+
+
+@contextlib.contextmanager
+def _blocked(*modules):
+    """Make ``import`` of ``modules`` fail inside the block."""
+    saved = {m: sys.modules.get(m) for m in modules}
+    for m in modules:
+        sys.modules[m] = None
+    try:
+        yield
+    finally:
+        for m, v in saved.items():
+            if v is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = v
+
+
+def check_classical_export(device, smi: str) -> dict:
+    """Phase "classical export" (module docstring, phase 10f)."""
+    shutil.rmtree(CE_DIR, ignore_errors=True)
+    CE_DIR.mkdir(parents=True)
+    out = {}
+    # 1. SGBM built here, on the first held-out scenes
+    t0 = time.perf_counter()
+    native_build.build_native("sgbm.cpp")
+    out["sgbm_build_s"] = time.perf_counter() - t0
+    entry = json.loads(HELD_OUT.read_text())["sgbm"]
+    t0 = time.perf_counter()
+    metrics = validators.validate_synthetic(
+        validators.ModelRunner(SGBMModule(**entry["parameters"]),
+                               device=device), n_images=entry["scenes"])
+    out["sgbm_s"] = time.perf_counter() - t0
+    got = {k: metrics[k] for k in entry["validate_synthetic"]}
+    out["sgbm"] = dict(got, fps=metrics["synthetic-fps"])
+    # the maps bit for bit (the matcher is integer arithmetic); the metrics
+    # within 1e-6 relative: numpy's float32 mean sums in an order that
+    # follows the host's SIMD width (this host's EPE differed in the 8th
+    # digit, PERF.md)
+    digest = hashlib.sha256()
+    scenes = SyntheticStereo(aug_params=None, length=entry["scenes"],
+                             seed0=10 ** 6, image_hw=(320, 448),
+                             max_disp=64.0)
+    for i in range(entry["scenes"]):
+        _, left, right, _, _ = scenes[i]
+        digest.update(np.ascontiguousarray(SGBMModule(**entry["parameters"])(
+            np.asarray(left)[None], np.asarray(right)[None])[0],
+            np.float32).tobytes())
+    out["sgbm_maps_equal"] = digest.hexdigest() == entry["maps_sha256"]
+    if not out["sgbm_maps_equal"] or any(
+            abs(got[k] - v) > 1e-6 * abs(v)
+            for k, v in entry["validate_synthetic"].items()):
+        raise AssertionError(f"SGBM held-out metrics {got}, maps "
+                             f"{digest.hexdigest()}; recorded {entry}")
+    log(f"  SGBM (num_of_disps {entry['parameters']['num_of_disps']}) on "
+        f"{entry['scenes']} held-out scenes: {json.dumps(out['sgbm'])}, "
+        f"{out['sgbm_s']:.2f} s (g++ build {out['sgbm_build_s']:.2f} s)")
+
+    # 2. the trained v2 exported at 320 x 448, loaded, run on the card
+    _, v2 = _trained(device, "v2")
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    left, right = (torch.rand((1, *EXPORT_HW, 3), generator=gen,
+                              device=device) * 255 for _ in range(2))
+    path = export_stereo_model(v2, image_hw=EXPORT_HW,
+                               output_file=CE_DIR / "v2.pt2")
+    with torch.no_grad():
+        got = load_exported(path).module()(left, right)
+        want = v2(left, right)[-1]
+    out["export_v2_max_abs_err"] = _compare(got, want, EXPORT_TOL,
+                                            "exported v2")
+    log(f"  exported v2 at {EXPORT_HW}: max |d| against eager "
+        f"{out['export_v2_max_abs_err']:.3e} px")
+    del v2
+
+    # 3. aot_compile of v1 at 720p: the CUDA-graph replay against eager
+    v1 = seeded_model(device, "v1")
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    left, right = (torch.rand((1, *HW, 3), generator=gen, device=device)
+                   * 255 for _ in range(2))
+    compiled = aot_compile(v1, image_hw=HW)
+    serve = make_serving_fn(v1)
+    with torch.no_grad():
+        want = serve(left, right)
+        got = compiled(left, right)
+        out["aot_max_abs_err"] = _compare(got, want, EXPORT_TOL,
+                                          "aot_compile v1 replay")
+        out["aot_ms"] = {"replay": time_ms(lambda: compiled(left, right), 10),
+                         "eager": time_ms(lambda: serve(left, right), 10)}
+    try:
+        compiled(left[:, 8:], right[:, 8:])
+        raise AssertionError("aot_compile took another shape")
+    except ValueError:
+        pass
+    log(f"  aot_compile v1 720p (CUDA graph of the plain float32 forward): "
+        f"max |d| against eager {out['aot_max_abs_err']:.3e} px, ms "
+        f"{json.dumps(out['aot_ms'])} | {smi}")
+
+    # 4. capacity of v1 at 720p
+    flops, params = get_model_capacity(v1, left, right, verbose=False)
+    out["capacity"] = {"gflops": flops / 1e9, "params": params}
+    log(f"  v1 at 720p: {flops / 1e9:.3f} GFLOPs (matmuls and convs, "
+        f"FlopCounterMode) | params: {params / 1e6:.3f} M.")
+
+    # 5. a trace of one v1 kernel frame names K1, K2 and K3
+    fast = make_fast_forward(v1)
+    fast(left, right)
+    torch.cuda.synchronize()
+    with trace(str(CE_DIR / "trace")):
+        fast(left, right)
+        torch.cuda.synchronize()
+    (trace_file,) = (CE_DIR / "trace").glob("trace_*.json")
+    events = json.loads(trace_file.read_text())["traceEvents"]
+    groups = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            g = frame_profile.kernel_group(e["name"]).split(" ")[0]
+            groups[g] = groups.get(g, 0) + 1
+    named = {k: groups.get(k, 0) for k in LAUNCHES_PER_FRAME}
+    out["trace_kernels"] = named
+    if named != LAUNCHES_PER_FRAME:
+        raise AssertionError(f"the trace's port kernels {named}, expected "
+                             f"{LAUNCHES_PER_FRAME}")
+    log(f"  trace of one v1 bf16 frame: port kernels {json.dumps(named)}, "
+        f"{trace_file.stat().st_size} bytes")
+    del v1, fast
+
+    # 6. infer on two PNGs, without Pillow or cv2
+    _, left, right, _, _ = SyntheticStereo(
+        aug_params=None, length=1, seed0=10 ** 6, image_hw=EXPORT_HW,
+        max_disp=64.0)[0]
+    imgs = CE_DIR / "imgs"
+    imgs.mkdir()
+    write_png(imgs / "scene_left.png", np.asarray(left, np.uint8))
+    write_png(imgs / "scene_right.png", np.asarray(right, np.uint8))
+    v2_entry = json.loads(HELD_OUT.read_text())["v2"]
+    runs = {"v2": ["--exp_config_json", str(ROOT / v2_entry["config"]),
+                   "--model_chkpt_file", str(ROOT / v2_entry["weights"])],
+            "sgbm": []}
+    pfms = {}
+    with _blocked("PIL", "cv2"):
+        for name, flags in runs.items():
+            _build.LAUNCHES.clear()
+            (pfm,) = infer.main([*flags, "--left", str(imgs / "*_left.png"),
+                                 "--replace", "_left", "_right", "--output",
+                                 str(CE_DIR / "out" / name)])
+            pfms[name] = (read_pfm(pfm)[0], dict(_build.LAUNCHES))
+            png = read_png(pfm.replace(".pfm", ".png"))
+            if png.shape != (*EXPORT_HW, 3):
+                raise AssertionError(f"infer {name}: PNG {png.shape}")
+    cfg = load_config(ROOT / v2_entry["config"])
+    runner = evaluate.build_runner(cfg, str(ROOT / v2_entry["weights"]),
+                                   device=device)
+    padder = InputPadder((1, *EXPORT_HW, 3),
+                         divis_by=2 ** cfg.model.downsample_factor)
+    li, ri = padder.pad(*(torch.from_numpy(np.asarray(a, np.float32)[None])
+                          .to(device) for a in (left, right)))
+    want = -padder.unpad(runner(li, ri)[-1].float())[0, :, :, 0].cpu()
+    got = torch.from_numpy(np.ascontiguousarray(pfms["v2"][0]))
+    out["infer"] = {"v2_max_abs_err": _compare(got, want, (1e-4, 0.0),
+                                               "infer v2 PFM"),
+                    "v2_launches": pfms["v2"][1],
+                    "sgbm_valid": float((pfms["sgbm"][0] > 0).mean())}
+    if pfms["v2"][1] != LAUNCHES_PER_FRAME:
+        raise AssertionError(f"infer v2 launches {pfms['v2'][1]}")
+    log(f"  infer with Pillow and cv2 blocked: {json.dumps(out['infer'])}")
+    shutil.rmtree(CE_DIR)
+    return out
+
+
+# phases --only runs besides v4 / dispnetc: name -> (label, check)
+ONLY_PHASES = {"data_parallel": ("data parallel", check_data_parallel),
+               "sharded": ("sharded", check_sharded),
+               "classical_export": ("classical export",
+                                    check_classical_export)}
+
+
 def dp_rank_main(mode: str, args) -> int:
-    """``--dp-rank``: one rank of the data-parallel phase."""
+    """``--dp-rank``: one rank of the data-parallel phase (10d) or of the
+    sharded phase (10e)."""
     if mode == "step":
         _dp_rank_step(pathlib.Path(args[0]))
+    elif mode == "sharded":
+        _sh_rank(pathlib.Path(args[0]))
     else:
         _dp_rank_train(pathlib.Path(args[0]), args[1])
     return 0
@@ -3154,9 +3645,9 @@ def main(argv=None) -> int:
                         help="run only the committed v2 synthetic config, "
                              "unmodified, for N + 1 steps, and time it")
     parser.add_argument("--only", nargs="+",
-                        choices=sorted(NEW_MODELS) + ["data_parallel"],
+                        choices=sorted(NEW_MODELS) + list(ONLY_PHASES),
                         help="run only these phases (v4, dispnetc, "
-                             "data_parallel)")
+                             "data_parallel, sharded, classical_export)")
     parser.add_argument("--dp-rank", nargs="+", metavar="ARG",
                         help=argparse.SUPPRESS)  # a rank of data_parallel
     args = parser.parse_args(argv)
@@ -3185,9 +3676,10 @@ def main(argv=None) -> int:
     if args.only:
         results = new_model_phases(
             device, smi, [n for n in args.only if n in NEW_MODELS])
-        if "data_parallel" in args.only:
-            with Phase("data parallel"):
-                results["data_parallel"] = check_data_parallel(device, smi)
+        for name, (label, check) in ONLY_PHASES.items():
+            if name in args.only:
+                with Phase(label):
+                    results[name] = check(device, smi)
         log(json.dumps({name: {k: v for k, v in r.items()}
                         for name, r in results.items()}))
         log(smi)
@@ -3255,6 +3747,10 @@ def main(argv=None) -> int:
     new_models = new_model_phases(device, smi, sorted(NEW_MODELS))
     with Phase("data parallel"):
         data_parallel = check_data_parallel(device, smi)
+    with Phase("sharded"):
+        sharded = check_sharded(device, smi)
+    with Phase("classical export"):  # its trace is the first profiler
+        classical_export = check_classical_export(device, smi)
     # last: a profiler session can leave per-launch tracing costs on the
     # host, which would slow the frames and steps timed above
     with Phase("narrow routes"):
@@ -3324,7 +3820,7 @@ def main(argv=None) -> int:
              "train_run_v2": train_v2, "train_run_v3": train_v3,
              "eval_v2": eval_v2, "eval_v3": eval_v3,
              "train_config_v2": train_config, **new_models,
-             "data_parallel": data_parallel}
+             "data_parallel": data_parallel, "sharded": sharded}
     kernels = []
     for name, row in rows.items():
         by_path = {p: r["launches"].get(name, 0) for p, r in paths.items()}
@@ -3391,6 +3887,9 @@ def main(argv=None) -> int:
                        for name, r in new_models.items()},
                     "data_parallel": {k: v for k, v in data_parallel.items()
                                       if k != "launches"},
+                    "sharded": {k: v for k, v in sharded.items()
+                                if k != "launches"},
+                    "classical_export": classical_export,
                     "autograd_err": {" ".join(k): v
                                      for k, v in grad_worst.items()},
                     "nvidia_smi": smi}))

@@ -2,10 +2,12 @@
 ``realtime_stereo_matcher_tpu/data/frame_io.py``, its readers only: no
 port code writes flow; reference dataset/frame_utils.py).
 
-Host-side IO stays numpy/PIL, CPU preprocessing feeding the card.  PIL is
-imported inside the readers of PNG / JPG only, so importing
-this module, the PFM and ``.flo`` readers and the synthetic scenes need no
-PIL.  Every reader mirrors the reference's decoding semantics:
+Host-side IO stays numpy, CPU preprocessing feeding the card.  PNGs are
+decoded by the port's own reader (``utils/png.py``, numpy and ``zlib``: the
+arrays Pillow gives); Pillow is imported only for other image formats (JPG,
+PPM) and PNG kinds that reader does not take, so importing this module,
+the PNG, PFM and ``.flo`` readers and the synthetic scenes need no Pillow.
+Every reader mirrors the reference's decoding semantics:
 
 * ``.flo`` Middlebury flow (:13-32)
 * PFM via utils/pfm.py (:34-69)
@@ -26,12 +28,27 @@ from os.path import basename, exists, splitext
 import numpy as np
 
 from realtime_stereo_matcher_tpu_torch.utils.pfm import read_pfm
+from realtime_stereo_matcher_tpu_torch.utils.png import UnsupportedPNG, read_png
 
 
-def _pil_open(path):
+def _open_image(path):
+    """An image file as an array-like: a PNG decoded by ``utils/png.py``
+    (Pillow's arrays), anything else (or a PNG kind it does not take) by
+    Pillow."""
+    if str(path).lower().endswith(".png"):
+        try:
+            return read_png(path)
+        except UnsupportedPNG:
+            pass
     from PIL import Image
 
     return Image.open(path)
+
+
+def read_image(path) -> np.ndarray:
+    """An image file as the array Pillow's ``np.array(Image.open(path))``
+    gives (PNGs without Pillow)."""
+    return np.asarray(_open_image(path))
 
 
 def read_flow(path) -> np.ndarray | None:
@@ -52,7 +69,7 @@ def read_flow(path) -> np.ndarray | None:
 
 def _read_png_16bit(path) -> np.ndarray:
     """16-bit grayscale PNG (KITTI disparity encoding)."""
-    img = _pil_open(path)
+    img = _open_image(path)
     return np.asarray(img, dtype=np.float32)
 
 
@@ -64,17 +81,17 @@ def read_disp_kitti(path):
 
 def read_disp_sintel(path):
     """Sintel RGB-coded disparity + occlusion mask (reference :130-136)."""
-    a = np.array(_pil_open(path))
+    a = np.array(_open_image(path))
     d_r, d_g, d_b = np.split(a, 3, axis=2)
     disp = (d_r * 4 + d_g / (2 ** 6) + d_b / (2 ** 14))[..., 0]
-    mask = np.array(_pil_open(path.replace("disparities", "occlusions")))
+    mask = np.array(_open_image(path.replace("disparities", "occlusions")))
     valid = (mask == 0) & (disp > 0)
     return disp, valid
 
 
 def read_disp_falling_things(path):
     """FallingThings: depth png + camera fx -> disparity (reference :139-146)."""
-    a = np.array(_pil_open(path))
+    a = np.array(_open_image(path))
     cam_file = os.path.join(os.path.dirname(path), "_camera_settings.json")
     with open(cam_file, "r") as f:
         intrinsics = json.load(f)
@@ -100,7 +117,7 @@ def read_disp_middlebury(path):
         assert disp.ndim == 2
         nocc = path.replace("disp0GT.pfm", "mask0nocc.png")
         assert exists(nocc)
-        mask = np.array(_pil_open(nocc)) == 255
+        mask = np.array(_open_image(nocc)) == 255
         assert np.any(mask)
         return disp, mask
     if name == "disp0.pfm":
@@ -118,7 +135,7 @@ def read_gen(path, pil: bool = False):
     """Extension-dispatch generic reader (reference :177-191)."""
     ext = splitext(path)[-1]
     if ext in (".png", ".jpeg", ".ppm", ".jpg"):
-        return _pil_open(path)
+        return _open_image(path)
     if ext in (".bin", ".raw"):
         return np.load(path)
     if ext == ".flo":

@@ -21,14 +21,16 @@ card); the metrics never depend on it.  The JAX package's
 ``shape_bucket``, which padded past /64 to bound its recompiles, has no
 counterpart: the port compiles nothing per shape.
 
-The classical SGBM baseline, which the JAX package's runner also takes,
-is not ported yet (ROADMAP.md): every runner here holds a neural model.
+The runner also takes the classical SGBM baseline (``classical/sgbm.py``),
+as the JAX package's does: it runs on the host, and its FPS is the wall
+clock of its one call.
 """
 
 from __future__ import annotations
 
 import logging
 import os.path as osp
+import time
 
 import numpy as np
 import torch
@@ -62,14 +64,28 @@ class ModelRunner:
     here, for every shape; its tile plans are cached per shape.  Nothing
     falls back: an error of the kernel path propagates.  ``device`` is
     resolved by ``resolve_device``, so without CUDA the default raises.
+
+    A classical module (the SGBM baseline, not a ``torch.nn.Module``) runs
+    on the host on the images copied there, as in the JAX package; its
+    maps are returned on ``device``; ``fast=True`` raises for it.
     """
 
-    def __init__(self, model: torch.nn.Module, *, fast="auto",
+    def __init__(self, model, *, fast="auto",
                  dtype: torch.dtype = torch.bfloat16, device="cuda"):
         if fast not in ("auto", True, False):
             raise ValueError(f"fast must be 'auto', True or False, not "
                              f"{fast!r}")
         self.device = resolve_device(device)
+        self.is_neural = isinstance(model, torch.nn.Module)
+        self._latency: dict[tuple, float] = {}
+        if not self.is_neural:
+            if fast is True:
+                raise NotImplementedError(
+                    f"{type(model).__name__} is a host module with no "
+                    f"kernel path")
+            self.model, self.fast, self.dtype = model, False, torch.float32
+            self._forward = self._host
+            return
         self.model = model.to(self.device).eval()
         kernels = has_kernel_path(self.model)
         if fast is True and not kernels:
@@ -82,7 +98,6 @@ class ModelRunner:
         self.dtype = dtype if self.fast or autocast else torch.float32
         self._forward = (make_fast_forward(self.model, dtype=dtype)
                          if self.fast else self._plain)
-        self._latency: dict[tuple, float] = {}
 
     @torch.no_grad()
     def _plain(self, left, right):
@@ -90,12 +105,21 @@ class ModelRunner:
                             enabled=self.dtype != torch.float32):
             return self.model(left, right)
 
+    def _host(self, left, right):
+        start = time.perf_counter()
+        out = self.model(left, right)
+        self._host_seconds = time.perf_counter() - start
+        return [torch.from_numpy(d).to(self.device) for d in out]
+
     def __call__(self, left, right):
         return self._forward(left, right)
 
     def latency(self, left, right) -> float:
         """Seconds per forward at this padded shape, measured once per
-        shape and cached (``utils/timing.py``)."""
+        shape and cached (``utils/timing.py``); for a host module the wall
+        clock of its last call, as the JAX package times it."""
+        if not self.is_neural:
+            return max(self._host_seconds, 1e-9)
         key = tuple(left.shape)
         if key not in self._latency:
             self._latency[key] = forward_latency(

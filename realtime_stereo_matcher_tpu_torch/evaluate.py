@@ -15,8 +15,8 @@ CPU it runs the plain float32 model.  MobileStereoNetV4 and MobileDispNetC
 have no kernel path: on the card they run their plain forward, autocast to
 bf16 under the same flag (``--fast on`` raises for them).  Weights load with
 ``models/checkpoint.py`` (the port's own files or a reference ``.pth``).
-The classical SGBM config raises ``NotImplementedError``: that model is
-not ported yet.
+The classical SGBM config (the default) runs the native C++ matcher on the
+host (``classical/sgbm.py``).
 """
 
 from __future__ import annotations
@@ -67,8 +67,9 @@ def build_runner(exp_config, model_chkpt_file: str, *, fast="auto",
     """The config's model with its weights, in a ``ModelRunner`` on
     ``device``."""
     model_config = exp_config.model.as_dict()
-    if not is_neural(model_config):
-        build_model(model_config, device=device)  # raises: not ported yet
+    if not is_neural(model_config):  # the SGBM baseline: no weights
+        return ModelRunner(build_model(model_config), fast=fast,
+                           device=device)
     if (exp_config.has_train and not model_chkpt_file
             and not allow_random_weights):
         # the reference fails loudly here too (torch.load on the empty

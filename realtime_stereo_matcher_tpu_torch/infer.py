@@ -13,10 +13,11 @@ It runs on the card unless ``--device cpu`` is given (as ``evaluate``:
 the bf16 kernel path on the card for a mixed-precision config, or for V4
 and DispNetC their plain forward in bf16; the plain float32 model on the
 CPU) and prints each pair's FPS, timed on the host
-around the forward and a synchronisation.  It reads the images and writes
-the PNG through Pillow, so it runs only where Pillow is installed: without
-it, ``main`` raises ``ImportError`` before it builds the model.
-(``evaluate`` on the synthetic scenes needs no Pillow.)
+around the forward and a synchronisation.  It reads PNG pairs and writes
+the PNG with the port's own codec (``utils/png.py``), so it needs neither
+Pillow nor cv2; other input formats go through ``data/frame_io.py``'s
+opener, which takes Pillow for them.  The default config is the classical
+SGBM baseline, which runs on the host.
 """
 
 from __future__ import annotations
@@ -30,11 +31,13 @@ import numpy as np
 import torch
 
 from realtime_stereo_matcher_tpu_torch.config import load_config
+from realtime_stereo_matcher_tpu_torch.data.frame_io import read_image
 from realtime_stereo_matcher_tpu_torch.evaluate import FAST, build_runner
 from realtime_stereo_matcher_tpu_torch.ops import InputPadder
 from realtime_stereo_matcher_tpu_torch.utils.colorize import colorize_2d_matrix
 from realtime_stereo_matcher_tpu_torch.utils.logger import setup_basic_logging
 from realtime_stereo_matcher_tpu_torch.utils.pfm import write_pfm
+from realtime_stereo_matcher_tpu_torch.utils.png import write_png
 
 
 def parse_args(argv=None):
@@ -59,8 +62,6 @@ def main(argv=None) -> list[str]:
     """Returns the paths of the PFM files written."""
     args = parse_args(argv)
     setup_basic_logging()
-    from PIL import Image
-
     exp_config = load_config(args.exp_config_json)
     # like test_stereo.py, a trainable config without a checkpoint runs
     # its initial weights
@@ -81,8 +82,8 @@ def main(argv=None) -> list[str]:
         l_img_name = os.path.splitext(os.path.basename(l_img_file))[0].replace(
             l_suffix, "")
 
-        l_img = np.array(Image.open(l_img_file))[..., :3].astype(np.float32)
-        r_img = np.array(Image.open(r_img_file))[..., :3].astype(np.float32)
+        l_img = read_image(l_img_file)[..., :3].astype(np.float32)
+        r_img = read_image(r_img_file)[..., :3].astype(np.float32)
         h, w = l_img.shape[:2]
 
         padder = InputPadder((1, h, w, 3), divis_by=divis_by)
@@ -104,7 +105,7 @@ def main(argv=None) -> list[str]:
         pfm_file = os.path.join(save_path, f"{l_img_name}_{w}x{h}_disparity.pfm")
         write_pfm(pfm_file, disp, 1.0)
         png_file = os.path.join(save_path, f"{l_img_name}_{w}x{h}_disparity.png")
-        Image.fromarray(color[:, :, ::-1]).save(png_file)  # color is BGR
+        write_png(png_file, np.ascontiguousarray(color[:, :, ::-1]))  # BGR
         written.append(pfm_file)
     return written
 

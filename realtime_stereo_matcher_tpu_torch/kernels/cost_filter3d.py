@@ -24,6 +24,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from realtime_stereo_matcher_tpu_torch import stats_dtype
 from realtime_stereo_matcher_tpu_torch.kernels import _build
 from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
     TC_PIX_BYTES,
@@ -162,11 +163,11 @@ def build_cost_filter_plan(cost_filter, *, dtype=torch.bfloat16
 
 
 def fast_cost_filter(vol: torch.Tensor, specs) -> torch.Tensor:
-    """(B, D, h, w, C) difference volume -> (B, D, h, w) float32 filtered
-    cost: the kernel-path ``CostFilter3D``.  The volume is cast to the specs'
+    """(B, D, h, w, C) difference volume -> (B, D, h, w) float32 (float64
+    for float64 specs) filtered cost: the kernel-path ``CostFilter3D``.  The volume is cast to the specs'
     dtype."""
     x = vol.to(specs[0].w.dtype).contiguous()
     for spec in specs:
         x = fused_conv3d(x, spec.w, spec.scale, spec.bias,
                          relu=spec.act == "relu")
-    return x[..., 0].float()
+    return x[..., 0].to(stats_dtype(x.dtype))

@@ -28,12 +28,15 @@ TPU's cost model and both zero outside tap offsets ``[-1, max_shift + 1]``.
 The port's one gather-based banded warp has that contract and serves every
 level of v2 and v3.
 
-Weights are folded once, when the plan is built.
+Weights are folded once, when the plan is built.  Given a row axis
+(``parallel/halo.py``), the same forward runs on this rank's rows, each
+conv, resize and warp on its haloed tile.
 
 Precision: the disparity state (and the warp's flow) is carried in float32
 outside the stack (bf16 would quantize sub-pixel disparity at ~0.8 px
 granularity); inside the stack activations are in the plan's dtype with
-float32 accumulation, and the final ``relu(disp + delta)`` runs in float32.
+float32 accumulation, and the final ``relu(disp + delta)`` runs in float32
+(float64 for a float64 plan).
 """
 
 from __future__ import annotations
@@ -42,7 +45,6 @@ import dataclasses
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 
 from realtime_stereo_matcher_tpu_torch import stats_dtype
 from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
@@ -51,12 +53,15 @@ from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
     convbn_spec,
     fold_bn_scale_bias,
     plain_scale_bias,
-    run_conv,
 )
-from realtime_stereo_matcher_tpu_torch.ops import (
-    resize_bilinear,
-    warp_by_flow_map_banded,
+from realtime_stereo_matcher_tpu_torch.parallel.halo import (
+    ONE,
+    conv2d_rows,
+    conv_rows,
+    resize_rows,
+    warp_rows,
 )
+from realtime_stereo_matcher_tpu_torch.parallel.mesh import Axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +69,7 @@ class SplitEntry:
     """v3's 65-channel entry conv split by input channel, BatchNorm scale
     folded into each part: linear 32 -> 32 specs for the left features and
     for the warped right ones (which carries the BatchNorm bias), and the
-    (32, 1, 3, 3) float32 disparity tap."""
+    (32, 1, 3, 3) float32 (float64 for a float64 plan) disparity tap."""
 
     left: ConvSpec
     right: ConvSpec
@@ -90,7 +95,7 @@ def _split_entry(convbn, dtype) -> SplitEntry:
     c = (conv.in_channels - 1) // 2
     scale, bias = fold_bn_scale_bias(bn.weight, bn.bias, bn.running_mean,
                                      bn.running_var, bn.eps)
-    w = conv.weight.float() * scale[:, None, None, None]   # OIHW
+    w = conv.weight.to(stats_dtype(dtype)) * scale[:, None, None, None]
     one, zero = plain_scale_bias(None, conv.out_channels, w.device)
 
     def linear(part, b):
@@ -121,50 +126,55 @@ def build_refine_plan(refine, *, dtype=torch.bfloat16) -> RefinePlan:
     return RefinePlan(tuple(specs), entry)
 
 
-def run_refine_stack(x: torch.Tensor, specs: Sequence[ConvSpec]) -> torch.Tensor:
+def run_refine_stack(x: torch.Tensor, specs: Sequence[ConvSpec],
+                     axis: Axis = ONE) -> torch.Tensor:
     """Run the folded conv stack on an NHWC activation; returns the head's
     output (the residual-disparity delta, 1 channel)."""
     history = [x]
     for spec in specs:
         res = history[spec.res_from] if spec.res_from is not None else None
-        history.append(run_conv(history[-1], spec, residual=res))
+        history.append(conv_rows(history[-1], spec, axis, residual=res))
     return history[-1]
 
 
-def refine_inputs(disp, l_guide, r_guide, max_shift, dtype):
+def refine_inputs(disp, l_guide, r_guide, max_shift, dtype, axis: Axis = ONE):
     """A RefineNet's inputs: the float32 (float64 for float64) disparity
     2x-upsampled, and the guides at its size in ``dtype``, the right one
     (if any) warped by it with the banded warp at ``max_shift``.  Returns
     (disp, [guides])."""
     h2, w2 = disp.shape[1] * 2, disp.shape[2] * 2
-    disp = resize_bilinear(disp.to(stats_dtype(disp.dtype)), (h2, w2)) * 2.0
+    disp = resize_rows(disp.to(stats_dtype(disp.dtype)), (h2, w2), axis,
+                       mode="bilinear") * 2.0
     guides = [l_guide] if r_guide is None else [l_guide, r_guide]
     guides = [(g if g.shape[1:3] == (h2, w2)
-               else resize_bilinear(g, (h2, w2))).to(dtype) for g in guides]
+               else resize_rows(g, (h2, w2), axis, mode="bilinear")).to(dtype)
+              for g in guides]
     if r_guide is not None:
-        guides[1] = warp_by_flow_map_banded(guides[1], disp, max_shift)
+        guides[1] = warp_rows(guides[1], disp, axis, max_shift)
     return disp, guides
 
 
 def fast_refine(disp: torch.Tensor, l_guide: torch.Tensor, plan: RefinePlan,
                 r_guide: torch.Tensor | None = None,
-                max_shift: int | None = None) -> torch.Tensor:
+                max_shift: int | None = None,
+                axis: Axis = ONE) -> torch.Tensor:
     """Kernel-path RefineNet: :func:`refine_inputs` (with the right guide
     where one is given: v2, v3), then the entry and the conv stack,
     ReLU-add.
 
     ``disp`` (B, h, w, 1) float32; ``l_guide`` and ``r_guide`` (B, H, W, C)
     (RGB for v1 and v2, 32-channel features for v3); returns (B, 2h, 2w, 1)
-    float32."""
+    float32 (of this rank's rows of ``axis``)."""
     disp, guides = refine_inputs(disp, l_guide, r_guide, max_shift,
-                                 plan.dtype)
+                                 plan.dtype, axis)
     e = plan.entry
     if e is None:
         x = torch.cat([disp.to(plan.dtype), *guides], dim=-1)
     else:
-        p1 = run_conv(guides[0].contiguous(), e.left)
-        p2 = run_conv(guides[1].contiguous(), e.right, residual=p1)
-        d = F.conv2d(disp.permute(0, 3, 1, 2), e.w_d, padding=1)
-        x = torch.relu(p2.float() + d.permute(0, 2, 3, 1)).to(plan.dtype)
-    delta = run_refine_stack(x.contiguous(), plan.specs)
-    return torch.relu(disp + delta.float())
+        p1 = conv_rows(guides[0].contiguous(), e.left, axis)
+        p2 = conv_rows(guides[1].contiguous(), e.right, axis, residual=p1)
+        d = conv2d_rows(disp.permute(0, 3, 1, 2), e.w_d, None, axis,
+                        padding=(1, 1))
+        x = torch.relu(p2.to(d.dtype) + d.permute(0, 2, 3, 1)).to(plan.dtype)
+    delta = run_refine_stack(x.contiguous(), plan.specs, axis)
+    return torch.relu(disp + delta.to(disp.dtype))

@@ -15,7 +15,9 @@ leaky ReLU 0.2, no BatchNorm, over a 32-channel pyramid.  Per view:
 
 The TPU layout of the JAX package's flat plan (pixel phases, lane folds) is
 not carried over: every level is a plain NHWC tensor.  Weights are folded
-once, when the plan is built.
+once, when the plan is built.  Given a row axis (``parallel/halo.py``), the
+same forward runs on this rank's rows of every pyramid level, each conv on
+its haloed tile.
 """
 
 from __future__ import annotations
@@ -28,14 +30,19 @@ import torch.nn.functional as F
 from realtime_stereo_matcher_tpu_torch.kernels.conv3x3 import (
     ConvSpec,
     conv_spec,
-    fused_conv4x4_s2,
     plain_scale_bias,
-    run_conv,
 )
 from realtime_stereo_matcher_tpu_torch.models.layers import (
     LEAKY_SLOPE,
     leaky_relu_02,
 )
+from realtime_stereo_matcher_tpu_torch.parallel.halo import (
+    ONE,
+    conv4x4_rows,
+    conv_rows,
+    conv_transpose2d_rows,
+)
+from realtime_stereo_matcher_tpu_torch.parallel.mesh import Axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,25 +110,26 @@ def _nchw(x):
     return x.permute(0, 3, 1, 2)
 
 
-def fast_unet(img: torch.Tensor, plan: UNetPlan) -> list[torch.Tensor]:
+def fast_unet(img: torch.Tensor, plan: UNetPlan,
+              axis: Axis = ONE) -> list[torch.Tensor]:
     """Kernel-path ``UNetFeatureExtractor``: (B, H, W, 3) normalized image
     (H, W multiples of 8) -> the pyramid [1/8, 1/4, 1/2, full] in the
-    plan's dtype, NHWC."""
-    x = run_conv(img.to(plan.dtype).contiguous(), plan.stem)
+    plan's dtype, NHWC (of this rank's rows of ``axis``)."""
+    x = conv_rows(img.to(plan.dtype).contiguous(), plan.stem, axis)
     down = [x]
     for k4, convs in plan.down:
-        x = fused_conv4x4_s2(x, k4.w, k4.scale, k4.bias, act=k4.act)
+        x = conv4x4_rows(x, k4, axis)
         for spec in convs:
-            x = run_conv(x, spec)
+            x = conv_rows(x, spec, axis)
         down.append(x)
     pyramid = [x]
     for j, lvl in enumerate(plan.up):
-        y = leaky_relu_02(F.conv_transpose2d(_nchw(x), lvl.up_w, lvl.up_b,
-                                             stride=2))
+        y = leaky_relu_02(conv_transpose2d_rows(_nchw(x), lvl.up_w, lvl.up_b,
+                                                axis, stride=(2, 2)))
         y = torch.cat([y, _nchw(down[-2 - j])], dim=1)
         y = leaky_relu_02(F.conv2d(y, lvl.mix_w, lvl.mix_b))
         x = y.permute(0, 2, 3, 1).contiguous()
         for spec in lvl.convs:
-            x = run_conv(x, spec)
+            x = conv_rows(x, spec, axis)
         pyramid.append(x)
     return pyramid

@@ -164,16 +164,20 @@ def _blockwise_conv(x: torch.Tensor, kernel: torch.Tensor, blocks: int,
 
 def interweave_cost(conv3d: nn.Sequential, volume11: nn.Sequential,
                     feat_l: torch.Tensor, feat_r: torch.Tensor,
-                    n_shifts: int, chunk: int | None = None) -> torch.Tensor:
+                    n_shifts: int, chunk: int | None = None, *,
+                    shift0: int = 0) -> torch.Tensor:
     """The reference's interweave volume and reducer for shifts
-    [0, ``n_shifts``) at once (JAX ``InterweaveVolume``,
-    models/stereo_net_v4.py:106-305; see the module docstring).
+    [``shift0``, ``shift0 + n_shifts``) at once (JAX ``InterweaveVolume``,
+    models/stereo_net_v4.py:106-305, and its ``volume_slab`` for a shift
+    range; see the module docstring).
 
     Args:
       conv3d, volume11: the model's reducer modules.
       feat_l, feat_r: (B, 32, h, w) features, NCHW.
       chunk: shifts a pass through the layers after the first (a memory
         knob; the result does not depend on it).
+      shift0: the first shift (a slab of the volume, as the disparity-
+        sharded volume builds it: ``parallel/disparity_sharding.py``).
     Returns:
       (B, n_shifts, h, w) with columns x < s of shift s zero.
     """
@@ -199,8 +203,8 @@ def interweave_cost(conv3d: nn.Sequential, volume11: nn.Sequential,
     colw = torch.arange(w, device=feat_l.device)
     chunk = min(chunk or n_shifts, n_shifts)
     slabs = []
-    for s0 in range(0, n_shifts, chunk):
-        shifts = torch.arange(s0, min(s0 + chunk, n_shifts),
+    for s0 in range(shift0, shift0 + n_shifts, chunk):
+        shifts = torch.arange(s0, min(s0 + chunk, shift0 + n_shifts),
                               device=feat_l.device)
         n_s = len(shifts)
         keep = colw[None, :] >= shifts[:, None]               # (n_s, w)

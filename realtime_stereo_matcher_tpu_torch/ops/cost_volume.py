@@ -30,42 +30,46 @@ from realtime_stereo_matcher_tpu_torch import stats_dtype
 DIFFERENCE_FILL = 1.0
 
 
-def _shift_indices(w: int, max_disp: int, device):
-    """(D, W) gather indices ``idx[d, x] = x - d`` (clamped) plus validity."""
+def _shift_indices(w: int, max_disp: int, device, shift0: int = 0):
+    """(D, W) gather indices ``idx[d, x] = x - (shift0 + d)`` (clamped) plus
+    validity."""
     idx = (torch.arange(w, device=device)[None, :]
-           - torch.arange(max_disp, device=device)[:, None])
+           - torch.arange(shift0, shift0 + max_disp, device=device)[:, None])
     valid = idx >= 0
     return idx.clamp(min=0), valid
 
 
-def shift_stack(fmap: torch.Tensor, max_disp: int):
+def shift_stack(fmap: torch.Tensor, max_disp: int, shift0: int = 0):
     """Stack right-image features over disparity shifts.
 
     Args:
       fmap: (B, H, W, C) right-image features.
       max_disp: number of disparity hypotheses D.
+      shift0: the first shift (a slab of the shifts).
 
     Returns:
       (stack, valid): stack (B, D, H, W, C) with
-      ``stack[:, d, :, x] = fmap[:, :, x - d]`` (clamped), and valid
-      (1, D, 1, W, 1) boolean mask of in-bounds shifts.
+      ``stack[:, d, :, x] = fmap[:, :, x - shift0 - d]`` (clamped), and
+      valid (1, D, 1, W, 1) boolean mask of in-bounds shifts.
     """
     w = fmap.shape[2]
-    idx, valid = _shift_indices(w, max_disp, fmap.device)
+    idx, valid = _shift_indices(w, max_disp, fmap.device, shift0)
     g = fmap[:, :, idx]                     # (B, H, D, W, C)
     return g.permute(0, 2, 1, 3, 4), valid[None, :, None, :, None]
 
 
 def difference_cost_volume(left: torch.Tensor, right: torch.Tensor,
-                           max_disp: int) -> torch.Tensor:
+                           max_disp: int, *, shift0: int = 0) -> torch.Tensor:
     """StereoNet-style difference volume (reference model/mobile_stereo_net.py:8-27).
 
     Args:
       left, right: (B, H, W, C) features.
+      shift0: the first shift: the slab of shifts ``[shift0, shift0 +
+        max_disp)`` (``parallel/disparity_sharding.py``).
     Returns:
       (B, D, H, W, C); entries with ``x < d`` are 1.0 (reference fill value).
     """
-    shifted, valid = shift_stack(right, max_disp)
+    shifted, valid = shift_stack(right, max_disp, shift0)
     return (left[:, None] - shifted).masked_fill(~valid, DIFFERENCE_FILL)
 
 
@@ -151,7 +155,14 @@ def soft_argmin_trilinear(vol: torch.Tensor, out_d: int, out_hw) -> torch.Tensor
     with torch.autocast(vol.device.type, enabled=False):
         v = F.interpolate(vol, size=tuple(out_hw), mode="bilinear",
                           align_corners=False).to(stats_dtype(vol.dtype))
-    i0, i1, t = _depth_lerp(vol.shape[1], out_d, vol.device)
+    return soft_argmin_depth_lerp(v, out_d)
+
+
+def soft_argmin_depth_lerp(v: torch.Tensor, out_d: int) -> torch.Tensor:
+    """The depth half of :func:`soft_argmin_trilinear`: ``v`` (B, S, H, W),
+    already resized spatially (in float32, float64 for float64), lerped to
+    ``out_d`` depths and soft-argmined.  Returns (B, H, W)."""
+    i0, i1, t = _depth_lerp(v.shape[1], out_d, v.device)
     l0 = v.index_select(1, i0)
     logits = l0 + t[:, None, None] * (v.index_select(1, i1) - l0)
     return soft_argmin(logits, axis=1)

@@ -56,7 +56,9 @@ def resize_trilinear(x: torch.Tensor, out_dhw, *, d_axis: int = 1,
                          (d_axis, h_axis, w_axis))
 
 
-def warp_by_flow_map(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def warp_by_flow_map(image: torch.Tensor, flow: torch.Tensor, *,
+                     height: int | None = None, row0: int = 0,
+                     pad: int = 0) -> torch.Tensor:
     """Warp ``image`` (B, H, W, C) by a (B, H, W, 1) horizontal flow: sample
     at ``x - flow`` with bilinear taps and zero padding.
 
@@ -64,43 +66,57 @@ def warp_by_flow_map(image: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     ``align_corners=False``, which composes to ``x_pix = (x - flow) * W /
     (W - 1) - 0.5`` and, on the identity y axis, ``y_pix = y * H / (H - 1)
     - 0.5``; this is that ``F.grid_sample`` call.  The grid is built in
-    float32 and cast to the image's dtype."""
-    b, h, w, _ = image.shape
+    float32 and cast to the image's dtype.
+
+    ``height``, ``row0`` and ``pad`` take a row tile of a taller image:
+    ``image`` holds the image's rows from ``row0`` with ``pad`` rows of the
+    image's (or zeros) on either side (``parallel/halo.py``), and ``flow``
+    the inner rows.  The y grid is then the whole image's, made relative
+    to the tile's rows."""
+    b, rows, w, _ = flow.shape
     if flow.shape[-1] != 1:
         raise ValueError(f"expected a 1-channel flow, got {tuple(flow.shape)}")
-    dev = image.device
+    h, dev, dt = height or rows, image.device, image.dtype
     gx = torch.arange(w, dtype=torch.float32, device=dev)
-    gy = torch.arange(h, dtype=torch.float32, device=dev)
-    x = gx - flow[..., 0].float()
-    grid = torch.stack([2.0 * x / (w - 1.0) - 1.0,
-                        (2.0 * gy / (h - 1.0) - 1.0)[:, None].expand(b, h, w)],
-                       dim=-1)
-    out = F.grid_sample(image.permute(0, 3, 1, 2), grid.to(image.dtype),
-                        mode="bilinear", padding_mode="zeros",
-                        align_corners=False)
+    gy = torch.arange(row0, row0 + rows, dtype=torch.float32, device=dev)
+    xn = (2.0 * (gx - flow[..., 0].float()) / (w - 1.0) - 1.0).to(dt)
+    yn = (2.0 * gy / (h - 1.0) - 1.0).to(dt)
+    if height is not None:  # grid_sample's y pixel, then the tile's grid
+        iy = ((yn + 1) * h - 1) / 2 - (row0 - pad)
+        yn = (2 * iy + 1) / image.shape[1] - 1
+    grid = torch.stack([xn, yn[:, None].expand(b, rows, w)], dim=-1)
+    out = F.grid_sample(image.permute(0, 3, 1, 2), grid, mode="bilinear",
+                        padding_mode="zeros", align_corners=False)
     return out.permute(0, 2, 3, 1)
 
 
-def _vertical_identity_blend(image: torch.Tensor) -> torch.Tensor:
+def _vertical_identity_blend(image: torch.Tensor, height: int | None = None,
+                             row0: int = 0, pad: int = 0) -> torch.Tensor:
     """The y half of the renormalized warp, fixed per row for a horizontal
     flow: row r blends rows floor(y_pix) and floor(y_pix) + 1 at
-    ``y_pix = r * H / (H - 1) - 0.5`` (zero outside the image)."""
-    h, dev = image.shape[1], image.device
+    ``y_pix = r * H / (H - 1) - 0.5`` (zero outside the image).
+
+    ``image`` may be a row tile of an image of ``height`` rows: its rows
+    ``pad .. -pad`` are the image's rows from ``row0``, with ``pad`` rows of
+    the image's (or zeros) on either side (``parallel/halo.py``)."""
+    rows, dev = image.shape[1] - 2 * pad, image.device
+    h = height or rows
     # made on the image's device: a host-to-device copy would stall the host
-    y_pix = (torch.arange(h, dtype=torch.float64, device=dev)
+    y_pix = (torch.arange(row0, row0 + rows, dtype=torch.float64, device=dev)
              * (h / (h - 1.0)) - 0.5)
     y0 = torch.floor(y_pix).long()
     ty = (y_pix - y0).float()
     wa = ((1.0 - ty) * ((y0 >= 0) & (y0 < h))).to(image.dtype)
     wb = (ty * ((y0 + 1 >= 0) & (y0 + 1 < h))).to(image.dtype)
-    ia = y0.clamp(0, h - 1)
-    ib = (y0 + 1).clamp(0, h - 1)
+    ia = y0.clamp(0, h - 1) - (row0 - pad)
+    ib = (y0 + 1).clamp(0, h - 1) - (row0 - pad)
     return (image.index_select(1, ia) * wa[:, None, None]
             + image.index_select(1, ib) * wb[:, None, None])
 
 
 def warp_by_flow_map_banded(image: torch.Tensor, flow: torch.Tensor,
-                            max_shift: int) -> torch.Tensor:
+                            max_shift: int, *, height: int | None = None,
+                            row0: int = 0, pad: int = 0) -> torch.Tensor:
     """:func:`warp_by_flow_map` for flows in ``[0, max_shift]``.
 
     Output pixel x reads taps x0 = floor(x_pix) and x0 + 1; where its tap
@@ -109,11 +125,13 @@ def warp_by_flow_map_banded(image: torch.Tensor, flow: torch.Tensor,
     ``warp_by_flow_map_matmul_banded``, which its kernel paths of v2 and v3
     use).  The flow and the tap weights stay float32, and the flow keeps
     its gradient through the tap weights; the taps are summed in float32
-    and cast to the image's dtype."""
-    b, h, w, c = image.shape
+    and cast to the image's dtype.  ``height``, ``row0`` and ``pad`` take a
+    row tile of a taller image (:func:`_vertical_identity_blend`); ``flow``
+    then has the tile's inner rows."""
     if flow.shape[-1] != 1:
         raise ValueError(f"expected a 1-channel flow, got {tuple(flow.shape)}")
-    blend = _vertical_identity_blend(image)
+    blend = _vertical_identity_blend(image, height, row0, pad)
+    b, h, w, c = blend.shape
     gx = torch.arange(w, dtype=torch.float32, device=image.device)
     x_pix = (gx - flow[..., 0].float()) * (w / (w - 1.0)) - 0.5
     x0f = torch.floor(x_pix)
@@ -129,3 +147,4 @@ def warp_by_flow_map_banded(image: torch.Tensor, flow: torch.Tensor,
         taps = flat.index_select(0, (rows + xi.clamp(0, w - 1)).reshape(-1))
         out += taps.view(b, h, w, c).float() * wt[..., None]
     return out.to(image.dtype)
+

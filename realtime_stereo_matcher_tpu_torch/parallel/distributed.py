@@ -20,7 +20,9 @@ below:
   go through it (sync-BN).
 * :func:`all_reduce_` (in place, no gradient), :func:`sum_gradients` (one
   flat all-reduce of every gradient, as the JAX step's single
-  ``psum(grads)``) and :func:`broadcast_tensors_`.
+  ``psum(grads)``) and :func:`broadcast_tensors_`;
+* :func:`all_gather` and :func:`broadcast_`: sharded inference's row halos,
+  gathers and replicated stages (``parallel/sharded_infer.py``).
 * :class:`CollectiveRecorder` -- records every collective the helpers issue
   (op, what it carries, dtype, shape, bytes) for ``parallel/comm_audit.py``.
 * :func:`spawn_ranks` -- runs one command as ``world`` ranks on this host,
@@ -260,6 +262,37 @@ def broadcast_tensors_(tensors, group, *, src: int = 0,
         for t in ts:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
             offset += t.numel()
+
+
+@torch.no_grad()
+def all_gather(t: torch.Tensor, group, *, what: str = "") -> list:
+    """Every rank's ``t`` (one shape and dtype on all ranks) in rank order,
+    on ``t``'s device; ``[t]`` for ``group=None``."""
+    if group is None:
+        return [t]
+    t = t.contiguous()
+    _record("all-gather", t, what)
+    dev = _comm_device(group, t)
+    buf = t.to(dev)
+    parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, buf, group=group)
+    return [p.to(t.device) for p in parts]
+
+
+@torch.no_grad()
+def broadcast_(t: torch.Tensor, group, *, src: int = 0,
+               what: str = "") -> torch.Tensor:
+    """Overwrite the contiguous ``t`` with rank ``src``'s (a rank of
+    ``group``) in place; returns ``t``.  A no-op for ``group=None``."""
+    if group is None:
+        return t
+    _record("broadcast", t, what)
+    dev = _comm_device(group, t)
+    buf = t if t.device == dev else t.to(dev)
+    dist.broadcast(buf, src=dist.get_global_rank(group, src), group=group)
+    if buf is not t:
+        t.copy_(buf)
+    return t
 
 
 def barrier(group) -> None:

@@ -641,9 +641,19 @@ def test_is_neural_matches_jax(config):
     assert is_neural(model) == jax_is_neural(model)
     if is_neural(model):  # every neural model of the repo is ported
         build_model(model, device="cpu")
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            build_model(model, device="cpu")
+    else:  # the classical SGBM: the JAX package's dataclass, field for field
+        import dataclasses
+
+        from realtime_stereo_matcher_tpu.models import (
+            build_model as jax_build_model,
+        )
+        from realtime_stereo_matcher_tpu_torch.classical.sgbm import (
+            SGBMModule,
+        )
+
+        got, want = build_model(model, device="cpu"), jax_build_model(model)
+        assert type(got) is SGBMModule
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 if __name__ == "__main__":

@@ -32,6 +32,8 @@ import torch
 
 from realtime_stereo_matcher_tpu.eval import validators as jax_validators
 from realtime_stereo_matcher_tpu_torch import evaluate, infer
+from realtime_stereo_matcher_tpu_torch.classical.sgbm import SGBMModule
+from realtime_stereo_matcher_tpu_torch.config import load_config
 from realtime_stereo_matcher_tpu_torch.data.synthetic import make_scene
 from realtime_stereo_matcher_tpu_torch.eval import validators
 from realtime_stereo_matcher_tpu_torch.models import build_model
@@ -239,14 +241,27 @@ def test_evaluate_refuses_what_it_cannot_run():
     with pytest.raises(SystemExit, match="--model_chkpt_file is required"):
         evaluate.main([f"--exp_config_json={ROOT / v2['config']}",
                        "--device=cpu"])
-    with pytest.raises(NotImplementedError, match="OpenCVSGBMModule"):
-        evaluate.main([f"--exp_config_json="
-                       f"{ROOT / 'configure/opencv_sgbm_config.json'}"])
+    # the SGBM config builds its runner (the native matcher); its test sets
+    # (middlebury_Q, eth3d) are absent here, and the Middlebury reader
+    # refuses the missing root
+    sgbm = f"--exp_config_json={ROOT / 'configure/opencv_sgbm_config.json'}"
+    runner = evaluate.build_runner(
+        load_config(ROOT / "configure/opencv_sgbm_config.json"), "",
+        device="cpu")
+    assert isinstance(runner.model, SGBMModule)
+    with pytest.raises(AssertionError) as refused:
+        evaluate.main([sgbm, "--device=cpu"])
+    *_, caller, reader = refused.traceback
+    assert (caller.path.name, caller.name) == ("validators.py",
+                                               "validate_middlebury")
+    assert (reader.path.name, reader.name) == ("datasets.py", "__init__")
+    assert "os.path.exists(root)" in str(reader.statement)
     if torch.cuda.is_available():
         return
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        evaluate.main([f"--exp_config_json={ROOT / v2['config']}",
-                       f"--model_chkpt_file={ROOT / v2['weights']}"])
+    for flags in ([f"--exp_config_json={ROOT / v2['config']}",
+                   f"--model_chkpt_file={ROOT / v2['weights']}"], [sgbm]):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            evaluate.main(flags)
 
 
 def _small_experiment(tmp_path, small_v2, test_sets, orbax=False):

@@ -126,6 +126,75 @@ PARALLEL_MODULES = (
 )
 
 
+# the last slice's modules (sharded inference, SGBM, export, the profiler
+# and the PNG codec), named for the same reason
+LAST_MODULES = (
+    "realtime_stereo_matcher_tpu_torch.classical.sgbm",
+    "realtime_stereo_matcher_tpu_torch.export",
+    "realtime_stereo_matcher_tpu_torch.parallel.disparity_sharding",
+    "realtime_stereo_matcher_tpu_torch.parallel.halo",
+    "realtime_stereo_matcher_tpu_torch.parallel.sharded_infer",
+    "realtime_stereo_matcher_tpu_torch.utils.native_build",
+    "realtime_stereo_matcher_tpu_torch.utils.png",
+    "realtime_stereo_matcher_tpu_torch.utils.profiler",
+)
+
+
+def test_last_modules_import_without_jax_pil_or_cv2():
+    """The last slice's modules import with JAX, the JAX package, PIL and
+    cv2 unimportable."""
+    assert set(LAST_MODULES) <= set(_module_names())
+    code = (
+        "import importlib, sys\n"
+        f"for name in {BANNED + ('PIL', 'cv2')!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {LAST_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print('imported all')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "imported all" in proc.stdout
+
+
+@pytest.mark.parametrize("model", ["sgbm", "v2"])
+def test_infer_runs_without_pil_or_cv2(tmp_path, model):
+    """With JAX, PIL and cv2 unimportable, ``infer.main`` reads two PNGs
+    written by the port's own codec and writes its PFM and jet PNG: the
+    default config (the SGBM baseline) and the trained v2 on the CPU."""
+    flags = [] if model == "sgbm" else [
+        "--exp_config_json",
+        str(ROOT / "configure" / "stereo_net_v2_synthetic_56k_resume_config.json"),
+        "--model_chkpt_file",
+        str(PORT / "weights" / "synth_stereo_net_v2-44000.pt")]
+    code = (
+        "import sys\n"
+        f"for name in {BANNED + ('PIL', 'cv2')!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np\n"
+        "from realtime_stereo_matcher_tpu_torch import infer\n"
+        "from realtime_stereo_matcher_tpu_torch.data.synthetic import "
+        "make_scene\n"
+        "from realtime_stereo_matcher_tpu_torch.utils.pfm import read_pfm\n"
+        "from realtime_stereo_matcher_tpu_torch.utils.png import (\n"
+        "    read_png, write_png)\n"
+        "left, right, _, _ = make_scene(10 ** 6, 64, 96)\n"
+        f"write_png({str(tmp_path / 'a_left.png')!r}, left)\n"
+        f"write_png({str(tmp_path / 'a_right.png')!r}, right)\n"
+        f"(pfm,) = infer.main({flags!r} + [\n"
+        f"    '--left', {str(tmp_path / '*_left.png')!r}, '--replace',\n"
+        f"    '_left', '_right', '--output', {str(tmp_path / 'out')!r},\n"
+        "    '--device', 'cpu'])\n"
+        "disp, _ = read_pfm(pfm)\n"
+        "png = read_png(pfm.replace('.pfm', '.png'))\n"
+        "print('maps', disp.shape, png.shape, png.dtype, "
+        "bool(np.isfinite(disp).all()))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "maps (64, 96) (64, 96, 3) uint8 True" in proc.stdout
+
+
 def test_imports_with_jax_blocked():
     """Every port module and chip_smoke import with the banned names made
     unimportable, so no import reaches them, directly or transitively."""

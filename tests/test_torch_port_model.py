@@ -218,18 +218,35 @@ def test_build_model_is_seeded():
 @pytest.mark.parametrize("mtype", ["MobileStereoNetV2", "MobileStereoNetV4",
                                    "MobileDispNetC", "OpenCVSGBMModule"])
 def test_unported_types_name_the_roadmap(mtype):
-    """Each type the port does not have raises naming ROADMAP.md.  v2, V4
-    and DispNetC were among them until they were ported: their cases check
-    that they left the queue and build."""
+    """Each of these types was queued in ROADMAP.md until it was ported:
+    each case checks that it left the queue and builds (the classical SGBM
+    an ``SGBMModule`` with the JAX package's dataclass fields), and an
+    unknown type raises."""
     ported = {"MobileStereoNetV2": MobileStereoNetV2,
               "MobileStereoNetV4": MobileStereoNetV4,
               "MobileDispNetC": MobileDispNetC}
     if mtype in ported:
         model = build_model({"type": mtype, "parameters": {}}, device="cpu")
         assert type(model) is ported[mtype] and not model.training
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model({"type": mtype, "parameters": {}}, device="cpu")
+    else:
+        _assert_sgbm_equals_jax({"type": mtype, "parameters": {}})
+    with pytest.raises(NotImplementedError, match="not a model type"):
+        build_model({"type": "NoSuchModel", "parameters": {}}, device="cpu")
+
+
+def _assert_sgbm_equals_jax(model_config):
+    """The port's SGBM module of ``model_config`` has the JAX package's
+    dataclass fields and values."""
+    import dataclasses
+
+    from realtime_stereo_matcher_tpu_torch.classical.sgbm import SGBMModule
+
+    model = build_model(model_config, device="cpu")
+    want = jax_build_model(model_config)
+    assert type(model) is SGBMModule
+    assert dataclasses.asdict(model) == dataclasses.asdict(want)
+    assert ([f.name for f in dataclasses.fields(model)]
+            == [f.name for f in dataclasses.fields(want)])
 
 
 def test_v3_is_ported():
@@ -271,8 +288,9 @@ def test_fast_forward_takes_v1_and_v3_only():
 
 def test_v2_still_raises():
     """v2 was queued until it was ported: it now builds from the repo's v2
-    config in eval mode, and the type still in the queue (the classical
-    SGBM; V4 and DispNetC have left it too) raises."""
+    config in eval mode.  The queue is empty: the classical SGBM, the last
+    type in it (V4 and DispNetC left it before), builds from the repo's
+    SGBM config an ``SGBMModule`` equal to the JAX package's."""
     import json
     import pathlib
 
@@ -283,6 +301,6 @@ def test_v2_still_raises():
     assert (model.down_factor, model.max_disp, model.hidden_dim,
             model.refine_dim) == (3, 192, 32, 7)
     assert model.refine_dilates == (1, 2, 4, 8, 1, 1)
-    with pytest.raises(NotImplementedError, match="queued in ROADMAP.md"):
-        build_model({"type": "OpenCVSGBMModule", "parameters": {}},
-                    device="cpu")
+    sgbm = json.loads((pathlib.Path(__file__).resolve().parent.parent
+                       / "configure" / "opencv_sgbm_config.json").read_text())
+    _assert_sgbm_equals_jax(sgbm["model"])

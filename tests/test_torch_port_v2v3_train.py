@@ -52,13 +52,13 @@ from realtime_stereo_matcher_tpu.train.loss import (
 from realtime_stereo_matcher_tpu_torch.config import load_config
 from realtime_stereo_matcher_tpu_torch.data.synthetic import SyntheticBatches
 from realtime_stereo_matcher_tpu_torch.kernels import (
-    refine_stack,
     train_conv,
     train_conv3d,
 )
 from realtime_stereo_matcher_tpu_torch.models import build_model
 from realtime_stereo_matcher_tpu_torch.models import fast_train
 from realtime_stereo_matcher_tpu_torch.models.convert import from_jax_variables
+from realtime_stereo_matcher_tpu_torch.parallel import halo
 from realtime_stereo_matcher_tpu_torch.models.fast_train import (
     fast_step_supported,
     fast_train_forward,
@@ -303,8 +303,8 @@ def test_warp_passes_the_flow_gradient(setup, monkeypatch):
         return float(np.linalg.norm(g - want) / np.linalg.norm(want))
 
     assert rel(port_grad()) < 1e-4
-    warp = refine_stack.warp_by_flow_map_banded
-    monkeypatch.setattr(refine_stack, "warp_by_flow_map_banded",
+    warp = halo.warp_by_flow_map_banded
+    monkeypatch.setattr(halo, "warp_by_flow_map_banded",
                         lambda img, flow, ms: warp(img, flow.detach(), ms))
     assert rel(port_grad()) > 1e-2
 

@@ -38,7 +38,6 @@ from realtime_stereo_matcher_tpu.models.torch_import import (
 from realtime_stereo_matcher_tpu_torch.kernels import (
     conv3x3,
     cost_filter3d,
-    unet,
 )
 from realtime_stereo_matcher_tpu_torch.kernels.refine_stack import (
     build_refine_plan,
@@ -51,6 +50,7 @@ from realtime_stereo_matcher_tpu_torch.kernels.unet import (
 from realtime_stereo_matcher_tpu_torch.models import build_model
 from realtime_stereo_matcher_tpu_torch.models.convert import from_jax_variables
 from realtime_stereo_matcher_tpu_torch.models.fast_infer import make_fast_forward
+from realtime_stereo_matcher_tpu_torch.parallel import halo
 from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
     refine_max_shifts,
 )
@@ -223,7 +223,7 @@ def test_fast_forward_v3_calls_each_kernel_as_counted(rng, port_v3,
 
     monkeypatch.setattr(conv3x3, "fused_conv3x3", counting(
         "fused_conv3x3", conv3x3.fused_conv3x3))
-    monkeypatch.setattr(unet, "fused_conv4x4_s2", counting(
+    monkeypatch.setattr(halo, "fused_conv4x4_s2", counting(
         "fused_conv4x4_s2", conv3x3.fused_conv4x4_s2))
     monkeypatch.setattr(cost_filter3d, "fused_conv3d", counting(
         "fused_conv3d", cost_filter3d.fused_conv3d))
