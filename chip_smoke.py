@@ -7,7 +7,7 @@
 The second form runs only the committed v2 synthetic training config as
 committed (``time_train_config``) and prints its timing; the first runs
 every phase below.  ``--only v4 dispnetc data_parallel sharded
-classical_export`` runs those phases alone.
+classical_export api`` runs those phases alone.
 
 Runs on one NVIDIA Hopper card (it exits non-zero at once without CUDA) and
 imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
@@ -162,12 +162,13 @@ imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
     parameters equal; every rank
     launches K1 108 / K3 10 / K4 59 a bf16 step; the bf16 step median on
     the ranks and here; the collective audit of a bf16 step (the gradient
-    all-reduce 4 bytes a parameter).  (b) a 1-rank NCCL group through one
-    float32 step, equal to this process's step bit for bit (loss, EPE,
-    gradients, parameters, running stats, launches; both under
-    ``torch.use_deterministic_algorithms``, under which one process
-    repeats its step bit for bit; without them two runs of one process
-    differ in their gradients, and the count is printed), and its bf16
+    all-reduce 4 bytes a parameter).  (b) two default float32 steps of
+    this process bit for bit (loss, EPE, gradients, parameters, running
+    stats, launches: the refinements' disparity upsample and the
+    encoder's plain convs have backwards that sum in a fixed order); a
+    1-rank NCCL group through one float32 step, equal to this process's
+    step bit for bit (both under ``torch.use_deterministic_algorithms``,
+    under which one process repeats its step bit for bit), and its bf16
     step median (one process's work with the DP step's collectives).  (c) the v2 synthetic config
     through ``train_stereo`` on 2 ranks, 512 scenes (256 resident a rank),
     20 steps: every step's launches those of a v2 step, the same losses on
@@ -213,6 +214,17 @@ imports nothing of JAX.  Phases, each timed after ``torch.cuda.synchronize()``:
     the trained v2 (kernel path) and the default SGBM config: PFMs and
     PNGs written, v2's PFM within 1e-4 px of ``evaluate``'s runner on
     that pair.
+10g. api (``--only api``): the JAX package's last public ops and KITTI
+    flow files.  ``concat_cost_volume`` and ``groupwise_cost_volume`` (8
+    groups) at the 1/4-resolution features of a 720p frame with the repo
+    configs' 48 shifts (DispNetC: 192 x 320, 64 channels; V4: 180 x 320,
+    32 channels), float32 and bf16, on the card against the same call on
+    the CPU: within 1e-6 of the output's scale in float32 and 2^-8 in
+    bf16; ``grid_sample_2d`` of a 720p 32-channel image at a 720p grid of
+    pixel coordinates reaching 3 px past every edge (every 7th row on
+    whole pixels), float32, within 1e-6 of its scale; a KITTI flow PNG of
+    a 375 x 1242 frame (flow in 1/64 px) written and read back with Pillow
+    and cv2 blocked, exact, valid all ones.
 11. report: one ``{"kernels": [...]}`` line (each kernel's
     ``launches_by_path`` with ``eval_v2`` / ``eval_v3``, its launches a
     frame of the eval phase, ``train_config_v2``, its launches in the 99
@@ -253,10 +265,12 @@ from realtime_stereo_matcher_tpu_torch import (
     evaluate,
     frame_profile,
     infer,
+    ops,
     train_stereo,
 )
 from realtime_stereo_matcher_tpu_torch.classical.sgbm import SGBMModule
 from realtime_stereo_matcher_tpu_torch.config import load_config
+from realtime_stereo_matcher_tpu_torch.data import frame_io
 from realtime_stereo_matcher_tpu_torch.data.device_augment import (
     N_UNIFORMS,
     AugmentSpec,
@@ -3102,15 +3116,21 @@ def check_data_parallel(device, smi: str) -> dict:
         f"{json.dumps(audit_report['per_what'])}; total "
         f"{audit_report['total_bytes']} B")
 
-    # (b) a 1-rank NCCL group through one float32 step, in this process,
-    # against one process, both with deterministic algorithms (without them
-    # the index ops' backward makes the gradients differ between two runs
-    # of one process); then its bf16 step timed: the same work as one
-    # process on the global batch, plus every collective of the DP step
+    # (b) two default float32 steps of one process, bit for bit (the
+    # refinements' disparity upsample and the encoder's plain convs have
+    # backwards that sum in a fixed order); a 1-rank NCCL group through one
+    # float32 step, in this process, against one process, both with
+    # deterministic algorithms; then its bf16 step timed: the same work as
+    # one process on the global batch, plus every collective of the DP step
     # (trivial at one rank)
     again = _dp_step(cfg, device, torch.float32, batch)
     nondeterministic = sum(not torch.equal(again["grads"][k], g)
                            for k, g in one["f32"]["grads"].items())
+    if nondeterministic:
+        raise AssertionError(f"two default float32 steps of one process "
+                             f"differ in {nondeterministic} of "
+                             f"{len(again['grads'])} gradients")
+    _dp_equal(again, one["f32"], "two default float32 steps of one process")
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         want = _dp_step(cfg, device, torch.float32, batch)
@@ -3131,10 +3151,10 @@ def check_data_parallel(device, smi: str) -> dict:
                            default_group(), timed=True)["step_ms_median"]
     finally:
         shutdown()
-    log(f"  data parallel: 1-rank NCCL float32 step equal to one process's "
-        f"bit for bit under deterministic algorithms (without them two runs "
-        f"of one process differ in {nondeterministic} of "
-        f"{len(again['grads'])} gradients); its bf16 step median "
+    log(f"  data parallel: two default float32 steps of one process equal "
+        f"bit for bit ({len(again['grads'])} gradients); 1-rank NCCL float32 "
+        f"step equal to one process's bit for bit under deterministic "
+        f"algorithms; its bf16 step median "
         f"{nccl_ms:.3f} ms, one process {one['bf16']['step_ms_median']:.3f} "
         f"ms | {smi}")
 
@@ -3619,11 +3639,96 @@ def check_classical_export(device, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 10g. the JAX package's last public ops and KITTI flow files
+# ---------------------------------------------------------------------------
+
+# the 1/4-resolution features of a 720p frame and the repo config's
+# max_disp / 4 shifts: DispNetC's conv2 (the frame padded to /64, 64
+# channels) and V4's (padded to /16, 32 channels); G divides C
+API_VOLUMES = {"dispnetc": dict(hw=(192, 320), c=64, d=48, groups=8),
+               "v4": dict(hw=(180, 320), c=32, d=48, groups=8)}
+# the card against the CPU, the largest error over the output's scale:
+# float32 (the group means summed in another order), bf16 (one ulp where
+# that order moves a rounding)
+API_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}
+# grid_sample_2d: a 720p 32-channel image, sampled at every pixel of a
+# 720p grid whose coordinates reach 3 px past every edge
+API_SAMPLE = dict(hw=(720, 1280), c=32, past=3.0)
+# a KITTI 2015 frame, flow in 1/64 px
+KITTI_FLOW_HW, KITTI_FLOW_MAX = (375, 1242), 500.0
+
+
+def _over_scale(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.float()
+    return float((got.cpu().float() - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+def check_api(device, smi: str) -> dict:
+    """Phase "api" (module docstring, phase 10g)."""
+    gen = torch.Generator().manual_seed(SEED)
+    out = {}
+    for name, v in API_VOLUMES.items():
+        left, right = (torch.randn((1, *v["hw"], v["c"]), generator=gen)
+                       for _ in range(2))
+        for dtype in (torch.float32, torch.bfloat16):
+            errs = {}
+            for op, args in (("concat", ()), ("groupwise", (v["groups"],))):
+                fn = getattr(ops, f"{op}_cost_volume")
+                lc, rc = left.to(dtype), right.to(dtype)
+                want = fn(lc, rc, v["d"], *args)
+                got = fn(lc.to(device), rc.to(device), v["d"], *args)
+                torch.cuda.synchronize()
+                if got.shape != want.shape or got.dtype != dtype:
+                    raise AssertionError(f"{name} {op} volume {got.shape} "
+                                         f"{got.dtype}, want {want.shape}")
+                errs[op] = _over_scale(got, want)
+                if not errs[op] <= API_TOL[dtype]:
+                    raise AssertionError(f"{name} {op} volume {dtype} on the"
+                                         f" card off the CPU's by {errs[op]}"
+                                         f" of its scale")
+                del got, want
+            out[f"{name} {str(dtype)[6:]}"] = dict(
+                shape=[1, v["d"], *v["hw"], v["c"]], **errs)
+    h, w = API_SAMPLE["hw"]
+    past = API_SAMPLE["past"]
+    image = torch.randn((1, h, w, API_SAMPLE["c"]), generator=gen)
+    x = torch.rand((1, h, w), generator=gen) * (w + 2 * past) - past
+    y = torch.rand((1, h, w), generator=gen) * (h + 2 * past) - past
+    x[:, ::7], y[:, ::7] = x[:, ::7].round(), y[:, ::7].round()
+    want = ops.grid_sample_2d(image, x, y)
+    got = ops.grid_sample_2d(image.to(device), x.to(device), y.to(device))
+    out["grid_sample_2d"] = dict(
+        err=_over_scale(got, want),
+        outside=float(((x < -1) | (x > w) | (y < -1) | (y > h)).float()
+                      .mean()))
+    if not out["grid_sample_2d"]["err"] <= API_TOL[torch.float32]:
+        raise AssertionError(f"grid_sample_2d on the card off the CPU's by "
+                             f"{out['grid_sample_2d']['err']} of its scale")
+    uv = (torch.rand((*KITTI_FLOW_HW, 2), generator=gen, dtype=torch.float64)
+          * 2 - 1) * KITTI_FLOW_MAX
+    uv = (uv * 64).round() / 64
+    CE_DIR.parent.mkdir(parents=True, exist_ok=True)
+    path = CE_DIR.parent / "chip_smoke_api_flow.png"
+    with _blocked("PIL", "PIL.Image", "cv2"):
+        frame_io.write_flow_kitti(path, uv.numpy())
+        flow, valid = frame_io.read_flow_kitti(path)
+    path.unlink()
+    if not (np.array_equal(flow, uv.numpy().astype(np.float32))
+            and np.all(valid == 1)):
+        raise AssertionError("KITTI flow PNG read back off what was written")
+    out["kitti_flow"] = dict(hw=list(KITTI_FLOW_HW), exact=True)
+    log(f"  api: {json.dumps(out)} | {smi}")
+    return out
+
+
 # phases --only runs besides v4 / dispnetc: name -> (label, check)
 ONLY_PHASES = {"data_parallel": ("data parallel", check_data_parallel),
                "sharded": ("sharded", check_sharded),
                "classical_export": ("classical export",
-                                    check_classical_export)}
+                                    check_classical_export),
+               "api": ("api", check_api)}
 
 
 def dp_rank_main(mode: str, args) -> int:
@@ -3647,7 +3752,8 @@ def main(argv=None) -> int:
     parser.add_argument("--only", nargs="+",
                         choices=sorted(NEW_MODELS) + list(ONLY_PHASES),
                         help="run only these phases (v4, dispnetc, "
-                             "data_parallel, sharded, classical_export)")
+                             "data_parallel, sharded, classical_export, "
+                             "api)")
     parser.add_argument("--dp-rank", nargs="+", metavar="ARG",
                         help=argparse.SUPPRESS)  # a rank of data_parallel
     args = parser.parse_args(argv)
@@ -3751,6 +3857,8 @@ def main(argv=None) -> int:
         sharded = check_sharded(device, smi)
     with Phase("classical export"):  # its trace is the first profiler
         classical_export = check_classical_export(device, smi)
+    with Phase("api"):
+        api = check_api(device, smi)
     # last: a profiler session can leave per-launch tracing costs on the
     # host, which would slow the frames and steps timed above
     with Phase("narrow routes"):
@@ -3890,6 +3998,7 @@ def main(argv=None) -> int:
                     "sharded": {k: v for k, v in sharded.items()
                                 if k != "launches"},
                     "classical_export": classical_export,
+                    "api": api,
                     "autograd_err": {" ".join(k): v
                                      for k, v in grad_worst.items()},
                     "nvidia_smi": smi}))

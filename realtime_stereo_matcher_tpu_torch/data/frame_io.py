@@ -1,6 +1,6 @@
-"""Dataset frame readers (a copy of the JAX package's framework-free
-``realtime_stereo_matcher_tpu/data/frame_io.py``, its readers only: no
-port code writes flow; reference dataset/frame_utils.py).
+"""Dataset frame readers and flow writers (a copy of the JAX package's
+framework-free ``realtime_stereo_matcher_tpu/data/frame_io.py``; reference
+dataset/frame_utils.py).
 
 Host-side IO stays numpy, CPU preprocessing feeding the card.  PNGs are
 decoded by the port's own reader (``utils/png.py``, numpy and ``zlib``: the
@@ -9,13 +9,17 @@ PPM) and PNG kinds that reader does not take, so importing this module,
 the PNG, PFM and ``.flo`` readers and the synthetic scenes need no Pillow.
 Every reader mirrors the reference's decoding semantics:
 
-* ``.flo`` Middlebury flow (:13-32)
+* ``.flo`` Middlebury flow, read and written (:13-32)
 * PFM via utils/pfm.py (:34-69)
 * KITTI 16-bit PNG disparity / 256 with disp > 0 validity (:124-127)
 * Sintel RGB-coded disparity + occlusion mask (:130-136)
 * FallingThings depth -> disparity via fx * 6 cm baseline (:139-146)
 * TartanAir npy depth -> disparity = 80 / depth (:149-153)
 * Middlebury PFM + nocc mask (:156-168)
+* KITTI flow, 16-bit RGB PNGs of ``64 * uv + 2**15`` and a valid channel,
+  read (:117-122) and written by ``utils/png.py``: no Pillow
+  (which keeps only the high byte of a 16-bit RGB sample, and whose
+  version 12 refuses the JAX package's ``write_flow_kitti``)
 * ``read_gen`` extension dispatch (:177-191)
 """
 
@@ -28,7 +32,13 @@ from os.path import basename, exists, splitext
 import numpy as np
 
 from realtime_stereo_matcher_tpu_torch.utils.pfm import read_pfm
-from realtime_stereo_matcher_tpu_torch.utils.png import UnsupportedPNG, read_png
+from realtime_stereo_matcher_tpu_torch.utils.png import (
+    UnsupportedPNG,
+    read_png,
+    write_png,
+)
+
+TAG_CHAR = np.array([202021.25], np.float32)
 
 
 def _open_image(path):
@@ -63,8 +73,16 @@ def read_flow(path) -> np.ndarray | None:
     return np.resize(data, (h, w, 2))
 
 
-
-
+def write_flow(path, uv: np.ndarray) -> None:
+    """Middlebury .flo writer: the tag, width and height, then (H, W, 2)
+    float32 flow, little-endian."""
+    assert uv.ndim == 3 and uv.shape[2] == 2
+    h, w = uv.shape[:2]
+    with open(path, "wb") as f:
+        TAG_CHAR.tofile(f)
+        np.array(w, np.int32).tofile(f)
+        np.array(h, np.int32).tofile(f)
+        uv.astype(np.float32).tofile(f)
 
 
 def _read_png_16bit(path) -> np.ndarray:
@@ -127,8 +145,21 @@ def read_disp_middlebury(path):
     raise ValueError(f"unknown middlebury disparity file: {path}")
 
 
+def read_flow_kitti(path):
+    """KITTI flow PNG -> (flow (H, W, 2) = (uv - 2**15) / 64, valid (H, W))
+    in float32 (reference :117-122)."""
+    raw = np.asarray(_open_image(path), dtype=np.float32)
+    flow, valid = raw[:, :, :2], raw[:, :, 2]
+    return (flow - 2 ** 15) / 64.0, valid
 
 
+def write_flow_kitti(path, uv) -> None:
+    """(H, W, 2) flow -> KITTI flow PNG: ``64 * uv + 2**15`` and a valid
+    channel of ones, as uint16 RGB (the JAX package's ``write_flow_kitti``,
+    which Pillow 12 refuses: it takes no uint16 RGB array)."""
+    uv = 64.0 * np.asarray(uv) + 2 ** 15
+    valid = np.ones([uv.shape[0], uv.shape[1], 1])
+    write_png(path, np.concatenate([uv, valid], axis=-1).astype(np.uint16))
 
 
 def read_gen(path, pil: bool = False):

@@ -97,11 +97,39 @@ def _hwio(w: torch.Tensor) -> torch.Tensor:
     return w.permute(*range(2, w.ndim), 1, 0)
 
 
+class _PlainConv(torch.autograd.Function):
+    """``F.conv2d`` (padding 1) of NCHW ``x`` whose backward runs cuDNN's
+    deterministic algorithms: by default cuDNN may pick a weight or data
+    gradient that sums with atomics, and two runs of one float32 step then
+    gave the encoder's 20 gradients other bits.  The forward is
+    ``F.conv2d`` itself; on the CPU the backward is autograd's."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride: int):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        return F.conv2d(x, w, stride=stride, padding=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, [ctx.stride] * 2, [1, 1], [1, 1], False,
+                [0, 0], 1, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                            False])
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        return dx, dw, None
+
+
 def _conv2d_nhwc(x, w_oihw, *, stride=1):
     """Plain ``F.conv2d`` (torch padding 1) on NHWC ``x``: the convs the
     training path keeps off the kernels, as the JAX package kept them in
-    XLA."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, stride=stride, padding=1)
+    XLA, with a deterministic backward (:class:`_PlainConv`)."""
+    y = _PlainConv.apply(x.permute(0, 3, 1, 2), w_oihw, stride)
     return y.permute(0, 2, 3, 1)
 
 

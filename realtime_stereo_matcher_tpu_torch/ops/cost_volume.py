@@ -8,8 +8,11 @@ vectorized over the disparity axis.  Layout is channels-last:
 * 3D volumes:              (B, D, H, W)
 
 The difference volume's invalid region (``x < d``) is filled with 1.0, as
-in the reference (model/mobile_stereo_net.py:13-22); the correlation
-volume's with 0.0 (reference model/mobile_disp_net_c.py:191).
+in the reference (model/mobile_stereo_net.py:13-22); the correlation,
+concatenation and group-wise volumes' with 0.0 (reference
+model/mobile_disp_net_c.py:191, cost_volume/*.py).  The concatenation and
+group-wise volumes are on no model's path (the reference's dormant
+cost-volume library, as in the JAX package).
 
 MobileDispNetC's correlation and MobileStereoNetV4's regression head
 (:func:`soft_argmin_trilinear`) were plain XLA in the JAX package and are
@@ -71,6 +74,45 @@ def difference_cost_volume(left: torch.Tensor, right: torch.Tensor,
     """
     shifted, valid = shift_stack(right, max_disp, shift0)
     return (left[:, None] - shifted).masked_fill(~valid, DIFFERENCE_FILL)
+
+
+def concat_cost_volume(left: torch.Tensor, right: torch.Tensor,
+                       max_disp: int) -> torch.Tensor:
+    """Concatenation volume (reference cost_volume/concatenate.py:11-41).
+
+    Args:
+      left, right: (B, H, W, C) features.
+    Returns:
+      (B, D, H, W, 2C): ``[..., :C]`` the left features, ``[..., C:]`` the
+      right features shifted by d, both 0 where ``x < d``.
+    """
+    shifted, valid = shift_stack(right, max_disp)
+    both = torch.cat([left[:, None].expand_as(shifted), shifted], dim=-1)
+    return both.masked_fill(~valid, 0.0)
+
+
+def groupwise_cost_volume(left: torch.Tensor, right: torch.Tensor,
+                          max_disp: int, n_groups: int) -> torch.Tensor:
+    """Group-wise correlation volume (reference cost_volume/groupwise.py:
+    12-56): ``out[b, d, h, x, g] = mean over the channels c of group g of
+    left[b, h, x, c] * right[b, h, x - d, c]`` for ``x >= d``, else 0.
+
+    The products and means are taken in float32 (float64 for float64) and
+    cast back to left's dtype.
+
+    Args:
+      left, right: (B, H, W, C) features, C a multiple of ``n_groups``.
+    Returns:
+      (B, D, H, W, G), the reference's (N, G, H, W, D) in this layout.
+    """
+    b, h, w, c = left.shape
+    assert c % n_groups == 0, (
+        f"groupwise cost channel ({c}) % #groups ({n_groups}) != 0.")
+    wide = stats_dtype(left.dtype)
+    shifted, valid = shift_stack(right, max_disp)
+    prod = left[:, None].to(wide) * shifted.to(wide)
+    prod = prod.reshape(b, max_disp, h, w, n_groups, c // n_groups).mean(-1)
+    return prod.masked_fill(~valid, 0.0).to(left.dtype)
 
 
 def soft_argmin(cost: torch.Tensor, axis: int = 1, *, keepdims: bool = False):

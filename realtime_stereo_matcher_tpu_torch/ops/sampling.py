@@ -12,7 +12,10 @@ plain PyTorch here:
 * :func:`warp_by_flow_map_banded` -- the same warp for flows in
   ``[0, max_shift]``, with the band contract of the JAX package's
   ``warp_by_flow_map_matmul_banded``: an output pixel whose tap offset lies
-  outside the band is zero.
+  outside the band is zero;
+* :func:`grid_sample_2d` -- the JAX package's ``grid_sample`` replacement,
+  a bilinear sample at pixel coordinates with zero padding, on no model's
+  path.
 """
 
 from __future__ import annotations
@@ -21,13 +24,52 @@ import torch
 import torch.nn.functional as F
 
 
+def _up2_transpose(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The transpose of the exact 2x bilinear upsample (align_corners=False)
+    along ``dim`` (negative) of ``g``: output 2k reads 0.25 of input k - 1
+    and 0.75 of k, output 2k + 1 0.75 of k and 0.25 of k + 1, the taps past
+    an edge clamped onto it.  Elementwise over slices: no atomics."""
+    ge, go = g.unflatten(dim, (-1, 2)).unbind(dim)
+    n = ge.shape[dim]
+    ge_next = torch.cat([ge.narrow(dim, 1, n - 1), go.narrow(dim, n - 1, 1)],
+                        dim)
+    go_prev = torch.cat([ge.narrow(dim, 0, 1), go.narrow(dim, 0, n - 1)],
+                        dim)
+    return 0.75 * (ge + go) + 0.25 * (ge_next + go_prev)
+
+
+class _Upsample2x(torch.autograd.Function):
+    """``F.interpolate(mode="bilinear", align_corners=False)`` to twice the
+    size of (N, C, h, w) ``x``, the same values, with a backward that sums
+    in a fixed order: CUDA's ``upsample_bilinear2d_backward`` adds with
+    atomics, so two runs of a training step gave other bits in most
+    gradients (the refinements' disparity upsample)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return F.interpolate(x, size=(2 * x.shape[-2], 2 * x.shape[-1]),
+                             mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        wide = torch.promote_types(g.dtype, torch.float32)
+        return _up2_transpose(_up2_transpose(g.to(wide), -1), -2).to(g.dtype)
+
+
 def _resize(x: torch.Tensor, out_hw, h_axis: int, w_axis: int, mode: str):
-    """``F.interpolate`` over axes (h_axis, w_axis) of any-rank ``x``."""
+    """``F.interpolate`` over axes (h_axis, w_axis) of any-rank ``x`` (an
+    exact 2x bilinear upsample that needs a gradient: :class:`_Upsample2x`,
+    the same values)."""
     xm = torch.movedim(x, (h_axis, w_axis), (-2, -1))
-    lead = xm.shape[:-2]
-    y = F.interpolate(xm.reshape(1, -1, *xm.shape[-2:]), size=tuple(out_hw),
-                      mode=mode,
-                      **({} if mode == "nearest" else {"align_corners": False}))
+    lead, hw = xm.shape[:-2], xm.shape[-2:]
+    x4 = xm.reshape(1, -1, *hw)
+    if (mode == "bilinear" and tuple(out_hw) == (2 * hw[0], 2 * hw[1])
+            and x.requires_grad and torch.is_grad_enabled()):
+        y = _Upsample2x.apply(x4)
+    else:
+        y = F.interpolate(x4, size=tuple(out_hw), mode=mode,
+                          **({} if mode == "nearest"
+                             else {"align_corners": False}))
     return torch.movedim(y.reshape(*lead, *y.shape[-2:]), (-2, -1),
                          (h_axis, w_axis))
 
@@ -54,6 +96,41 @@ def resize_trilinear(x: torch.Tensor, out_dhw, *, d_axis: int = 1,
                       mode="trilinear", align_corners=False)
     return torch.movedim(y.reshape(*lead, *y.shape[-3:]), (-3, -2, -1),
                          (d_axis, h_axis, w_axis))
+
+
+def grid_sample_2d(image: torch.Tensor, x_pix: torch.Tensor,
+                   y_pix: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of ``image`` (B, H, W, C) at pixel coordinates, zero
+    outside the image: ``F.grid_sample(mode="bilinear",
+    padding_mode="zeros", align_corners=False)`` at the normalized grid
+    ``x_pix = ((gx + 1) * W - 1) / 2`` (and y alike), as the JAX package's
+    ``grid_sample_2d`` computes it: four taps gathered, each out-of-bounds
+    tap 0, then lerped along x and along y in the image's dtype.
+
+    Args:
+      image: (B, H, W, C).
+      x_pix, y_pix: (B, H', W') sample locations in pixels.
+    Returns:
+      (B, H', W', C).
+    """
+    b, h, w, c = image.shape
+    x0f, y0f = torch.floor(x_pix), torch.floor(y_pix)
+    tx = (x_pix - x0f).to(image.dtype)[..., None]
+    ty = (y_pix - y0f).to(image.dtype)[..., None]
+    x0, y0 = x0f.long(), y0f.long()
+    flat = image.reshape(b, h * w, c)
+
+    def tap(yi, xi):
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+        vals = flat.gather(1, idx.reshape(b, -1, 1).expand(-1, -1, c))
+        return vals.reshape(*yi.shape, c) * valid[..., None].to(image.dtype)
+
+    v00, v01 = tap(y0, x0), tap(y0, x0 + 1)
+    v10, v11 = tap(y0 + 1, x0), tap(y0 + 1, x0 + 1)
+    top = v00 + tx * (v01 - v00)
+    bot = v10 + tx * (v11 - v10)
+    return top + ty * (bot - top)
 
 
 def warp_by_flow_map(image: torch.Tensor, flow: torch.Tensor, *,

@@ -4,14 +4,16 @@ The card's machine has neither library, so the port reads and writes PNGs
 itself (``infer``, ``data/frame_io.py``):
 
 * :func:`read_png` -- non-interlaced PNGs of 8-bit grey, grey + alpha, RGB,
-  RGBA and palette indices, and 16-bit grey, every row filter (None, Sub,
-  Up, Average, Paeth), into the array Pillow's ``np.array(Image.open(...))``
-  gives: uint8 (H, W), (H, W, 2), (H, W, 3) or (H, W, 4), the palette's
-  indices as uint8 (H, W), uint16 (H, W) for 16-bit grey.  Any other kind
-  (interlaced, fewer than 8 bits, 16-bit colour) raises
-  :class:`UnsupportedPNG`;
-* :func:`write_png` -- uint8 grey / RGB / RGBA and uint16 grey arrays, rows
-  unfiltered, zlib level 6.
+  RGBA and palette indices, and 16-bit grey and RGB, every row filter
+  (None, Sub, Up, Average, Paeth), into the array Pillow's
+  ``np.array(Image.open(...))`` gives: uint8 (H, W), (H, W, 2), (H, W, 3)
+  or (H, W, 4), the palette's indices as uint8 (H, W), uint16 (H, W) for
+  16-bit grey.  16-bit RGB (KITTI's flow files) comes back as its uint16
+  (H, W, 3) samples in RGB order, the values cv2 reads (in BGR order);
+  Pillow keeps only their high bytes.  Any other kind (interlaced, fewer
+  than 8 bits, 16-bit grey + alpha or RGBA) raises :class:`UnsupportedPNG`;
+* :func:`write_png` -- uint8 grey / RGB / RGBA and uint16 grey / RGB
+  arrays, rows unfiltered, zlib level 6.
 """
 
 from __future__ import annotations
@@ -100,23 +102,26 @@ def read_png(path) -> np.ndarray:
         raise ValueError("PNG file without IHDR")
     w, h, depth, colour, _, _, interlace = header
     if (colour not in _CHANNELS or interlace
-            or depth not in (8, 16) or (depth == 16 and colour != 0)):
+            or depth not in (8, 16) or (depth == 16 and colour not in (0, 2))):
         raise UnsupportedPNG(f"{path}: colour type {colour}, {depth} bits, "
                              f"interlace {interlace}")
     channels = _CHANNELS[colour]
     bpp = channels * depth // 8
     rows = _unfilter(zlib.decompress(b"".join(idat)), h, w * bpp, bpp)
     if depth == 16:
-        return rows.view(">u2").astype(np.uint16).reshape(h, w)
+        rows = rows.view(">u2").astype(np.uint16)
     return rows.reshape(h, w, channels) if channels > 1 else rows.reshape(h, w)
 
 
 def write_png(path, image: np.ndarray) -> None:
     """Write a uint8 (H, W), (H, W, 3) or (H, W, 4) array (grey, RGB, RGBA)
-    or a uint16 (H, W) array (16-bit grey) as a PNG at ``path``."""
+    or a uint16 (H, W) or (H, W, 3) array (16-bit grey, RGB) as a PNG at
+    ``path``."""
     a = np.asarray(image)
-    if a.dtype == np.uint16 and a.ndim == 2:
-        depth, colour, rows = 16, 0, a.astype(">u2").view(np.uint8)
+    if a.dtype == np.uint16 and (a.ndim == 2 or a.ndim == 3
+                                 and a.shape[2] == 3):
+        depth, colour = 16, 0 if a.ndim == 2 else 2
+        rows = a.astype(">u2").view(np.uint8).reshape(a.shape[0], -1)
     elif a.dtype == np.uint8 and a.ndim == 2:
         depth, colour, rows = 8, 0, a
     elif a.dtype == np.uint8 and a.ndim == 3 and a.shape[2] in (3, 4):
@@ -124,7 +129,7 @@ def write_png(path, image: np.ndarray) -> None:
         rows = a.reshape(a.shape[0], -1)
     else:
         raise ValueError(f"write_png takes uint8 grey / RGB / RGBA or uint16 "
-                         f"grey, not {a.dtype} {a.shape}")
+                         f"grey / RGB, not {a.dtype} {a.shape}")
     h, w = a.shape[:2]
     raw = np.concatenate([np.zeros((h, 1), np.uint8),
                           np.ascontiguousarray(rows).reshape(h, -1)], axis=1)
