@@ -1,0 +1,3 @@
+"""conv_roofline_pct.stream: ``readers.conv_roofline_pct``."""
+
+from stereobench.readers import conv_roofline_pct as read  # noqa: F401

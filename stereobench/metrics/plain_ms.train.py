@@ -1,0 +1,3 @@
+"""plain_ms.train: ``readers.plain_ms``."""
+
+from stereobench.readers import plain_ms as read  # noqa: F401

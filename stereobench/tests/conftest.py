@@ -1,0 +1,9 @@
+"""The benchmark's CPU tests: run from the root of the checkout with
+``python3 -m pytest stereobench/tests``; ``-m cuda`` on a card."""
+
+import pathlib
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
