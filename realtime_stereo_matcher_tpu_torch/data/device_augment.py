@@ -34,6 +34,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from realtime_stereo_matcher_tpu_torch.utils.spans import span
+
 
 @dataclasses.dataclass(frozen=True)
 class AugmentSpec:
@@ -337,11 +339,12 @@ def make_device_augment(spec: AugmentSpec):
     ``first`` this batch's first row in it."""
 
     def augment(step, img1, img2, flow, *, first: int = 0, total=None):
-        b = img1.shape[0]
-        gen = step_generator(step, img1.device)
-        u = torch.rand((total or b, N_UNIFORMS), generator=gen,
-                       device=img1.device)
-        p = draw_params(spec, u[first:first + b])
-        return apply_augment(spec, p, img1, img2, flow)
+        with span("rsm.augment"):
+            b = img1.shape[0]
+            gen = step_generator(step, img1.device)
+            u = torch.rand((total or b, N_UNIFORMS), generator=gen,
+                           device=img1.device)
+            p = draw_params(spec, u[first:first + b])
+            return apply_augment(spec, p, img1, img2, flow)
 
     return augment

@@ -36,6 +36,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from realtime_stereo_matcher_tpu_torch.utils.spans import span
+
 DISP_FIXED_POINT = 512.0  # synthetic-set disparity quanta: 1/512 px
 GENERIC_FIXED_POINT = 128.0  # any other dataset: 1/128 px, to 511 px
 SENTINEL = np.uint16(65535)
@@ -188,12 +190,13 @@ def fetch_scene_batch(arrays, idx, fp: float = DISP_FIXED_POINT):
     ``disp_q`` holds the 16-bit words as int16; ``fp`` is the pack's
     fixed-point scale.  SENTINEL words decode to flow -1024."""
     img1, img2, disp_q = arrays
-    idx = idx.to(img1.device)
-    q = disp_q.index_select(0, idx).to(torch.int32) & 0xFFFF
-    d = torch.where(q == int(SENTINEL), _SENTINEL_FLOW,
-                    q.to(torch.float32) / fp)
-    return (img1.index_select(0, idx), img2.index_select(0, idx),
-            -d.unsqueeze(-1))
+    with span("rsm.fetch"):
+        idx = idx.to(img1.device)
+        q = disp_q.index_select(0, idx).to(torch.int32) & 0xFFFF
+        d = torch.where(q == int(SENTINEL), _SENTINEL_FLOW,
+                        q.to(torch.float32) / fp)
+        return (img1.index_select(0, idx), img2.index_select(0, idx),
+                -d.unsqueeze(-1))
 
 
 class DeviceResidentScenes:

@@ -24,6 +24,10 @@ Inputs are zero-padded to a multiple of 2^down_factor, exactly as the model
 pads them; the TPU-only alignment pad of the JAX package is not needed.
 Weights are folded once, here, in the path's dtype.
 
+Under a profiler a frame is the span ``rsm.forward`` holding ``rsm.extract``
+(normalise, pad, both views' encoder or U-Net), ``rsm.cost`` (volume, cost
+filter, soft-argmin) and ``rsm.refine.0`` to ``.2`` (``utils/spans.py``).
+
 MobileStereoNetV4 and MobileDispNetC have no kernel path, as in the JAX
 package (:func:`has_kernel_path`): they run their plain forward.
 """
@@ -58,6 +62,10 @@ from realtime_stereo_matcher_tpu_torch.models.stereo_net import (
     refine_max_shifts,
 )
 from realtime_stereo_matcher_tpu_torch.ops import pad_to_multiple
+from realtime_stereo_matcher_tpu_torch.utils.spans import (
+    refine_span_names,
+    span,
+)
 
 
 # the models with a kernel path (v1 and v2 share one)
@@ -91,22 +99,29 @@ def make_fast_forward(model, *, dtype=torch.bfloat16):
     refine_plans = [build_refine_plan(r, dtype=dtype)
                     for r in model.refine_layer]
     shifts = refine_max_shifts(model.max_disp, down)
+    refine_spans = refine_span_names(len(refine_plans))
 
     @torch.no_grad()
     def forward(left_img, right_img):
-        left, orig_hw = pad_to_multiple(normalize_images(left_img, dtype), align)
-        right, _ = pad_to_multiple(normalize_images(right_img, dtype), align)
-        lf = fast_encoder(left, enc_plan)
-        rf = fast_encoder(right, enc_plan)
-        x = _coarse_disparity(lf, rf, vol_disp,
-                              lambda vol: fast_cost_filter(vol, cf_plan))
-        multi_scale = []
-        out_hw = left.shape[1:3]
-        r_guide = right if warp else None
-        for plan, shift in zip(refine_plans, shifts):
-            x = fast_refine(x, left, plan, r_guide, shift)
-            multi_scale.append(_full_res_nearest(x, out_hw, orig_hw))
-        return [-1.0 * m for m in multi_scale]
+        with span("rsm.forward"):
+            with span("rsm.extract"):
+                left, orig_hw = pad_to_multiple(
+                    normalize_images(left_img, dtype), align)
+                right, _ = pad_to_multiple(normalize_images(right_img, dtype),
+                                           align)
+                lf = fast_encoder(left, enc_plan)
+                rf = fast_encoder(right, enc_plan)
+            with span("rsm.cost"):
+                x = _coarse_disparity(lf, rf, vol_disp,
+                                      lambda vol: fast_cost_filter(vol, cf_plan))
+            multi_scale = []
+            out_hw = left.shape[1:3]
+            r_guide = right if warp else None
+            for name, plan, shift in zip(refine_spans, refine_plans, shifts):
+                with span(name):
+                    x = fast_refine(x, left, plan, r_guide, shift)
+                    multi_scale.append(_full_res_nearest(x, out_hw, orig_hw))
+            return [-1.0 * m for m in multi_scale]
 
     return forward
 
@@ -120,20 +135,27 @@ def _make_fast_forward_v3(model: MobileStereoNetV3, dtype):
     refine_plans = [build_refine_plan(r, dtype=dtype)
                     for r in model.refine_layers]
     shifts = refine_max_shifts(model.max_disp, down)
+    refine_spans = refine_span_names(len(refine_plans))
 
     @torch.no_grad()
     def forward(left_img, right_img):
-        left, orig_hw = pad_to_multiple(normalize_images(left_img, dtype), align)
-        right, _ = pad_to_multiple(normalize_images(right_img, dtype), align)
-        l_py = fast_unet(left, unet_plan)
-        r_py = fast_unet(right, unet_plan)
-        x = _coarse_disparity(l_py[0], r_py[0], vol_disp,
-                              lambda vol: fast_cost_filter(vol, cf_plan))
-        multi_scale = []
-        out_hw = left.shape[1:3]
-        for i, plan in enumerate(refine_plans):
-            x = fast_refine(x, l_py[i + 1], plan, r_py[i + 1], shifts[i])
-            multi_scale.append(_full_res_nearest(x, out_hw, orig_hw))
-        return [-1.0 * m for m in multi_scale]
+        with span("rsm.forward"):
+            with span("rsm.extract"):
+                left, orig_hw = pad_to_multiple(
+                    normalize_images(left_img, dtype), align)
+                right, _ = pad_to_multiple(normalize_images(right_img, dtype),
+                                           align)
+                l_py = fast_unet(left, unet_plan)
+                r_py = fast_unet(right, unet_plan)
+            with span("rsm.cost"):
+                x = _coarse_disparity(l_py[0], r_py[0], vol_disp,
+                                      lambda vol: fast_cost_filter(vol, cf_plan))
+            multi_scale = []
+            out_hw = left.shape[1:3]
+            for i, plan in enumerate(refine_plans):
+                with span(refine_spans[i]):
+                    x = fast_refine(x, l_py[i + 1], plan, r_py[i + 1], shifts[i])
+                    multi_scale.append(_full_res_nearest(x, out_hw, orig_hw))
+            return [-1.0 * m for m in multi_scale]
 
     return forward

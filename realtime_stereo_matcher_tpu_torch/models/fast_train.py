@@ -53,6 +53,11 @@ of the sums, so a rank's output depends on every rank's input in the
 backward too), the masked loss is each rank's share of the global one
 (``train/loss.py``), and the gradients are summed over the ranks in one flat
 all-reduce before the optimizer step.
+
+Under a profiler a step is the span ``rsm.step`` holding the forward's
+``rsm.extract``, ``rsm.cost`` and ``rsm.refine.<level>``, then ``rsm.loss``
+(the loss and the step's metrics), ``rsm.backward`` (the backward and the
+gradients' sum over the ranks) and ``rsm.optimizer`` (``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -87,6 +92,10 @@ from realtime_stereo_matcher_tpu_torch.ops import (
 from realtime_stereo_matcher_tpu_torch.parallel.distributed import (
     all_reduce_,
     sum_gradients,
+)
+from realtime_stereo_matcher_tpu_torch.utils.spans import (
+    refine_span_names,
+    span,
 )
 
 _VARIANTS = (MobileStereoNet, MobileStereoNetV2, MobileStereoNetV3)
@@ -245,35 +254,39 @@ def fast_train_forward(model, left_img, right_img, *, train: bool = True,
     stats = running_stats(model)
     kw = dict(train=train, dtype=dtype, group=group)
 
-    left, orig_hw = pad_to_multiple(normalize_images(left_img, dtype), align)
-    right, _ = pad_to_multiple(normalize_images(right_img, dtype), align)
-    if type(model) is MobileStereoNetV3:
-        # the U-Net's own plain forward in the path's dtype, once per view
-        with torch.autocast(left.device.type, dtype=dtype,
-                            enabled=dtype != torch.float32):
-            l_py = model.feature_extractor(left)
-            r_py = model.feature_extractor(right)
-        lf, rf = l_py[0].to(dtype), r_py[0].to(dtype)
-        guides = list(zip(l_py[1:], r_py[1:]))
-        refines, name = model.refine_layers, "refine_layers"
-    else:
-        lf = encoder_train(model.feature_extractor, left, stats, **kw)
-        rf = encoder_train(model.feature_extractor, right, stats, **kw)
-        warp = type(model) is MobileStereoNetV2
-        guides = [(left, right if warp else None)] * down
-        refines, name = model.refine_layer, "refine_layer"
-    vol = difference_cost_volume(lf, rf, vol_disp)
-    cost = cost_filter_train(model.cost_filter, vol, stats, **kw)
-    x = soft_argmin(cost, axis=1)[..., None]
+    with span("rsm.extract"):
+        left, orig_hw = pad_to_multiple(normalize_images(left_img, dtype), align)
+        right, _ = pad_to_multiple(normalize_images(right_img, dtype), align)
+        if type(model) is MobileStereoNetV3:
+            # the U-Net's own plain forward in the path's dtype, once per view
+            with torch.autocast(left.device.type, dtype=dtype,
+                                enabled=dtype != torch.float32):
+                l_py = model.feature_extractor(left)
+                r_py = model.feature_extractor(right)
+            lf, rf = l_py[0].to(dtype), r_py[0].to(dtype)
+            guides = list(zip(l_py[1:], r_py[1:]))
+            refines, name = model.refine_layers, "refine_layers"
+        else:
+            lf = encoder_train(model.feature_extractor, left, stats, **kw)
+            rf = encoder_train(model.feature_extractor, right, stats, **kw)
+            warp = type(model) is MobileStereoNetV2
+            guides = [(left, right if warp else None)] * down
+            refines, name = model.refine_layer, "refine_layer"
+    with span("rsm.cost"):
+        vol = difference_cost_volume(lf, rf, vol_disp)
+        cost = cost_filter_train(model.cost_filter, vol, stats, **kw)
+        x = soft_argmin(cost, axis=1)[..., None]
 
     multi_scale = []
     out_hw = left.shape[1:3]
     shifts = refine_max_shifts(model.max_disp, down)
+    refine_spans = refine_span_names(len(refines))
     for r, rn in enumerate(refines):
-        l_guide, r_guide = guides[r]
-        x = refine_net_train(rn, x, l_guide, stats, f"{name}.{r}", r_guide,
-                             shifts[r], **kw)
-        multi_scale.append(_full_res_nearest(x, out_hw, orig_hw))
+        with span(refine_spans[r]):
+            l_guide, r_guide = guides[r]
+            x = refine_net_train(rn, x, l_guide, stats, f"{name}.{r}", r_guide,
+                                 shifts[r], **kw)
+            multi_scale.append(_full_res_nearest(x, out_hw, orig_hw))
     return [-1.0 * m for m in multi_scale], stats
 
 
@@ -306,21 +319,25 @@ def make_fast_train_step(model, tx, loss_params: dict,
     loss = build_loss_function({"type": loss_type, "parameters": loss_params})
 
     def train_step(state, img1, img2, flow, valid):
-        model.train()
-        tx.zero_grad()
-        preds, new_stats = fast_train_forward(model, img1, img2, train=True,
-                                              dtype=dtype, group=group)
-        loss_val = loss(preds, flow, valid, group=group)
-        loss_val.backward()
-        sum_gradients(tx.params, group)
-        tx.step()
-        load_running_stats(model, new_stats)
-        metrics = flow_map_metrics(flow, preds[-1].detach(), valid,
-                                   group=group)
-        live = loss_val.detach().clone().reshape(1)
-        metrics["live_loss"] = all_reduce_(live, group, what="loss")[0]
-        state.step += 1
-        return state, metrics
+        with span("rsm.step"):
+            model.train()
+            tx.zero_grad()
+            preds, new_stats = fast_train_forward(model, img1, img2, train=True,
+                                                  dtype=dtype, group=group)
+            with span("rsm.loss"):
+                loss_val = loss(preds, flow, valid, group=group)
+                metrics = flow_map_metrics(flow, preds[-1].detach(), valid,
+                                           group=group)
+                live = loss_val.detach().clone().reshape(1)
+                metrics["live_loss"] = all_reduce_(live, group, what="loss")[0]
+            with span("rsm.backward"):
+                loss_val.backward()
+                sum_gradients(tx.params, group)
+            with span("rsm.optimizer"):
+                tx.step()
+                load_running_stats(model, new_stats)
+            state.step += 1
+            return state, metrics
 
     return train_step
 

@@ -12,7 +12,9 @@ tools/profiler.py:11-26, thop MACs and fvcore FLOPs).
   ``cost_analysis``, which also counts the elementwise work of the fused
   program, so the two are different quantities and are not compared;
 * :func:`trace` -- ``torch.profiler`` over the block, CPU and CUDA
-  activities, its Chrome trace written into ``log_dir``.
+  activities, its Chrome trace written into ``log_dir``;
+* :func:`span` -- a named span at a stage of the port's hot paths
+  (``utils/spans.py``), recorded while a profiler runs.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from realtime_stereo_matcher_tpu_torch.train.trainer import count_parameters
+from realtime_stereo_matcher_tpu_torch.utils.spans import span
 
 
 def cost_analysis(fn, *args, **kwargs) -> dict[str, Any]:
@@ -52,7 +55,8 @@ def get_model_capacity(model, left, right, *, verbose: bool = True):
 def trace(log_dir: str):
     """Profile the block with ``torch.profiler`` (CPU, and CUDA where a card
     is present); on exit its Chrome trace is written to ``log_dir`` as
-    ``trace_<pid>_<ns>.json``.  Yields the profiler."""
+    ``trace_<pid>_<ns>.json``.  Yields the profiler.  The trace holds the
+    program's ``rsm.`` spans (:func:`span`) beside the kernels."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -68,4 +72,4 @@ def trace(log_dir: str):
 
 
 __all__ = ["cost_analysis", "count_parameters", "get_model_capacity",
-           "trace"]
+           "span", "trace"]
