@@ -24,15 +24,26 @@ Inputs are zero-padded to a multiple of 2^down_factor, exactly as the model
 pads them; the TPU-only alignment pad of the JAX package is not needed.
 Weights are folded once, here, in the path's dtype.
 
-Under a profiler a frame is the span ``rsm.forward`` holding ``rsm.extract``
-(normalise, pad, both views' encoder or U-Net), ``rsm.cost`` (volume, cost
-filter, soft-argmin) and ``rsm.refine.0`` to ``.2`` (``utils/spans.py``).
+A frame runs in stages: ``rsm.extract`` (normalise, pad, both views'
+encoder or U-Net), ``rsm.cost`` (volume, cost filter, soft-argmin) and one
+``rsm.refine.<level>`` a refine level (``.0`` to ``.2``); under a profiler each is a span inside
+``rsm.forward`` (``utils/spans.py``).  On a CUDA device the forward replays
+them as CUDA graphs, one per stage, once it has seen an input key twice
+(:class:`GraphPolicy`): the same kernels and plain ops in the same order on
+the same stream, issued by one ``cudaGraphLaunch`` call in each stage's
+span instead of some 340-400 launches from Python.  The first call
+of a key runs eagerly, the second captures (in the span ``rsm.capture``).
+On CPU tensors every call runs eagerly.
 
 MobileStereoNetV4 and MobileDispNetC have no kernel path, as in the JAX
 package (:func:`has_kernel_path`): they run their plain forward.
 """
 
 from __future__ import annotations
+
+import collections
+import functools
+import types
 
 import torch
 
@@ -70,6 +81,8 @@ from realtime_stereo_matcher_tpu_torch.utils.spans import (
 
 # the models with a kernel path (v1 and v2 share one)
 KERNEL_PATH_MODELS = (MobileStereoNet, MobileStereoNetV2, MobileStereoNetV3)
+# input keys whose graphs a forward keeps (:class:`GraphPolicy`)
+MAX_GRAPH_KEYS = 4
 
 
 def has_kernel_path(model) -> bool:
@@ -83,79 +96,180 @@ def make_fast_forward(model, *, dtype=torch.bfloat16):
 
     The returned function takes NHWC uint8-range images on the model's
     device and returns 3 (B, H, W, 1) float32 negative disparity maps,
-    coarse to fine."""
+    coarse to fine, tensors of its own on every call.  On a CUDA device it
+    replays CUDA graphs of its stages for inputs whose key it has seen
+    before (:class:`GraphPolicy`); ``forward.graph_stats`` counts its calls
+    by how they ran."""
     if not has_kernel_path(model):
         raise NotImplementedError(
             f"the kernel path supports MobileStereoNet v1, v2 and v3, not "
             f"{type(model).__name__}; see ROADMAP.md")
-    if type(model) is MobileStereoNetV3:
-        return _make_fast_forward_v3(model, dtype)
+    stages = _stages(model, dtype)
+    return GraphPolicy(functools.partial(run_stages, stages),
+                       functools.partial(capture_stages, stages),
+                       functools.partial(graph_key, dtype=dtype))
+
+
+def _stages(model, dtype):
+    """(span, fn(frame)) for each stage of the frame, in order; each fn
+    reads and sets fields of the frame (:func:`run_stages`).  v1 and v2
+    extract with the encoder and guide every refinement by the images (v2
+    warps the right one); v3 extracts a U-Net pyramid whose finer levels
+    are the refinements' guides."""
+    v3 = type(model) is MobileStereoNetV3
     warp = type(model) is MobileStereoNetV2
     down = model.down_factor
     align = 2 ** down
     vol_disp = (model.max_disp + 1) // align
-    enc_plan = build_encoder_plan(model.feature_extractor, dtype=dtype)
+    if v3:
+        unet_plan = build_unet_plan(model.feature_extractor, dtype=dtype)
+    else:
+        enc_plan = build_encoder_plan(model.feature_extractor, dtype=dtype)
     cf_plan = build_cost_filter_plan(model.cost_filter, dtype=dtype)
-    refine_plans = [build_refine_plan(r, dtype=dtype)
-                    for r in model.refine_layer]
+    refine_plans = [build_refine_plan(r, dtype=dtype) for r in
+                    (model.refine_layers if v3 else model.refine_layer)]
     shifts = refine_max_shifts(model.max_disp, down)
-    refine_spans = refine_span_names(len(refine_plans))
+    levels = len(refine_plans)
+
+    def extract(f):
+        f.left, f.orig_hw = pad_to_multiple(
+            normalize_images(f.left_img, dtype), align)
+        right, _ = pad_to_multiple(normalize_images(f.right_img, dtype), align)
+        if v3:
+            f.lf, *f.l_guides = fast_unet(f.left, unet_plan)
+            f.rf, *f.r_guides = fast_unet(right, unet_plan)
+        else:
+            f.lf = fast_encoder(f.left, enc_plan)
+            f.rf = fast_encoder(right, enc_plan)
+            f.l_guides = [f.left] * levels
+            f.r_guides = [right if warp else None] * levels
+
+    def cost(f):
+        f.x = _coarse_disparity(f.lf, f.rf, vol_disp,
+                                lambda vol: fast_cost_filter(vol, cf_plan))
+
+    def refine(i):
+        def run(f):
+            f.x = fast_refine(f.x, f.l_guides[i], refine_plans[i],
+                              f.r_guides[i], shifts[i])
+            f.maps.append(_full_res_nearest(f.x, f.left.shape[1:3],
+                                            f.orig_hw))
+        return run
+
+    return (("rsm.extract", extract), ("rsm.cost", cost),
+            *zip(refine_span_names(levels), map(refine, range(levels))))
+
+
+def _frame(left_img, right_img):
+    return types.SimpleNamespace(left_img=left_img, right_img=right_img,
+                                 maps=[])
+
+
+@torch.no_grad()
+def run_stages(stages, left_img, right_img):
+    """A frame run eagerly: each stage in its span inside ``rsm.forward``,
+    then the maps negated."""
+    f = _frame(left_img, right_img)
+    with span("rsm.forward"):
+        for name, stage in stages:
+            with span(name):
+                stage(f)
+        return [-1.0 * m for m in f.maps]
+
+
+@torch.no_grad()
+def capture_stages(stages, left_img, right_img):
+    """Capture each stage of a frame in a CUDA graph of its own, on static
+    copies of these inputs, and return ``replay(left_img, right_img)``.
+
+    As ``export.aot_compile`` does, the frame first runs once on the side
+    stream that then captures.  The graphs share one memory pool, so
+    ``replay`` runs them in the order they were captured: it copies the
+    inputs into the static ones and replays the extract graph in
+    ``rsm.extract``, then each other graph in its stage's span, all inside
+    ``rsm.forward`` and on the current stream; it returns the graphs'
+    maps negated, new tensors that no later replay overwrites."""
+    dev = left_img.device
+    f = _frame(left_img.clone(memory_format=torch.contiguous_format),
+               right_img.clone(memory_format=torch.contiguous_format))
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    pool = torch.cuda.graph_pool_handle()
+    graphs = []
+    with span("rsm.capture"), torch.cuda.stream(side):
+        run_stages(stages, f.left_img, f.right_img)
+        for name, stage in stages:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=side):
+                stage(f)
+            graphs.append((name, graph))
+    main.wait_stream(side)
+    (extract_name, extract), rest = graphs[0], graphs[1:]
 
     @torch.no_grad()
-    def forward(left_img, right_img):
+    def replay(left, right):
         with span("rsm.forward"):
-            with span("rsm.extract"):
-                left, orig_hw = pad_to_multiple(
-                    normalize_images(left_img, dtype), align)
-                right, _ = pad_to_multiple(normalize_images(right_img, dtype),
-                                           align)
-                lf = fast_encoder(left, enc_plan)
-                rf = fast_encoder(right, enc_plan)
-            with span("rsm.cost"):
-                x = _coarse_disparity(lf, rf, vol_disp,
-                                      lambda vol: fast_cost_filter(vol, cf_plan))
-            multi_scale = []
-            out_hw = left.shape[1:3]
-            r_guide = right if warp else None
-            for name, plan, shift in zip(refine_spans, refine_plans, shifts):
+            with span(extract_name):
+                f.left_img.copy_(left)
+                f.right_img.copy_(right)
+                extract.replay()
+            for name, graph in rest:
                 with span(name):
-                    x = fast_refine(x, left, plan, r_guide, shift)
-                    multi_scale.append(_full_res_nearest(x, out_hw, orig_hw))
-            return [-1.0 * m for m in multi_scale]
+                    graph.replay()
+            return [-1.0 * m for m in f.maps]
 
-    return forward
+    return replay
 
 
-def _make_fast_forward_v3(model: MobileStereoNetV3, dtype):
-    down = model.down_factor
-    align = 2 ** down
-    vol_disp = (model.max_disp + 1) // align
-    unet_plan = build_unet_plan(model.feature_extractor, dtype=dtype)
-    cf_plan = build_cost_filter_plan(model.cost_filter, dtype=dtype)
-    refine_plans = [build_refine_plan(r, dtype=dtype)
-                    for r in model.refine_layers]
-    shifts = refine_max_shifts(model.max_disp, down)
-    refine_spans = refine_span_names(len(refine_plans))
+def graph_key(left_img, right_img, *, dtype):
+    """The key under which a call's stages are captured (device, the path's
+    dtype, each input's shape and dtype), or None where the call always runs
+    eagerly: CPU tensors, or a stream capture in progress."""
+    if (left_img.device.type != "cuda"
+            or torch.cuda.is_current_stream_capturing()):
+        return None
+    return (left_img.device, dtype, tuple(left_img.shape), left_img.dtype,
+            tuple(right_img.shape), right_img.dtype)
 
-    @torch.no_grad()
-    def forward(left_img, right_img):
-        with span("rsm.forward"):
-            with span("rsm.extract"):
-                left, orig_hw = pad_to_multiple(
-                    normalize_images(left_img, dtype), align)
-                right, _ = pad_to_multiple(normalize_images(right_img, dtype),
-                                           align)
-                l_py = fast_unet(left, unet_plan)
-                r_py = fast_unet(right, unet_plan)
-            with span("rsm.cost"):
-                x = _coarse_disparity(l_py[0], r_py[0], vol_disp,
-                                      lambda vol: fast_cost_filter(vol, cf_plan))
-            multi_scale = []
-            out_hw = left.shape[1:3]
-            for i, plan in enumerate(refine_plans):
-                with span(refine_spans[i]):
-                    x = fast_refine(x, l_py[i + 1], plan, r_py[i + 1], shifts[i])
-                    multi_scale.append(_full_res_nearest(x, out_hw, orig_hw))
-            return [-1.0 * m for m in multi_scale]
 
-    return forward
+class GraphPolicy:
+    """A frame that replays what it has captured, by what its calls show.
+
+    ``GraphPolicy(eager, capture, key)(left, right)``: where ``key(left,
+    right)`` is None, ``eager(left, right)``.  Else the key's first call
+    runs ``eager`` (which also builds the kernels and pays their one-time
+    set-up); its second call runs ``capture(left, right)``, which returns
+    the key's ``replay``, and then ``replay(left, right)``; every later call
+    ``replay``.  At most ``MAX_GRAPH_KEYS`` (4) keys are kept, first sights
+    included, the least recently used dropped with its graphs: inputs of
+    ever new sizes, as a validator over Middlebury or ETH3D gives, never
+    capture, and a few sizes (KITTI's) keep theirs.
+
+    ``graph_stats`` counts the calls: ``eager``, ``captured`` (the calls
+    that captured) and ``replayed``."""
+
+    def __init__(self, eager, capture, key):
+        self._eager, self._capture, self._key = eager, capture, key
+        self._replays = collections.OrderedDict()  # key -> replay or None
+        self.graph_stats = {"eager": 0, "captured": 0, "replayed": 0}
+
+    def __call__(self, left_img, right_img):
+        key = self._key(left_img, right_img)
+        if key is None:
+            return self._run("eager", self._eager, left_img, right_img)
+        if key not in self._replays:
+            self._replays[key] = None
+            if len(self._replays) > MAX_GRAPH_KEYS:
+                self._replays.popitem(last=False)
+            return self._run("eager", self._eager, left_img, right_img)
+        self._replays.move_to_end(key)
+        replay = self._replays[key]
+        if replay is not None:
+            return self._run("replayed", replay, left_img, right_img)
+        replay = self._replays[key] = self._capture(left_img, right_img)
+        return self._run("captured", replay, left_img, right_img)
+
+    def _run(self, how, fn, left_img, right_img):
+        self.graph_stats[how] += 1
+        return fn(left_img, right_img)

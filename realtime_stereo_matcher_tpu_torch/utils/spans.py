@@ -10,7 +10,9 @@ The spans (every name starts ``rsm.``):
 
 * ``rsm.forward`` -- a kernel-path frame (``models/fast_infer.py``);
 * ``rsm.extract``, ``rsm.cost``, ``rsm.refine.<level>`` -- its stages, and
-  those of the kernel-path training forward (``models/fast_train.py``);
+  those of the kernel-path training forward (``models/fast_train.py``); a
+  replayed frame's stage holds its one ``cudaGraphLaunch``;
+* ``rsm.capture`` -- the capture of a frame's stages as CUDA graphs;
 * ``rsm.step``, and inside it ``rsm.loss``, ``rsm.backward``,
   ``rsm.optimizer`` -- a kernel-path training step;
 * ``rsm.fetch``, ``rsm.augment`` -- the resident fetch and the batched

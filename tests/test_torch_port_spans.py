@@ -10,11 +10,16 @@ versions on CPU tensors.  With no profiler a span is one shared null
 context, a frame checks 6 times and a step 11, and what the paths compute
 is bit-equal with and without the profiler.
 
-This file imports no JAX.  Its card test runs on the card by
+On the card, a traced eager trigger's launch calls are one to one with its
+device operations, and a replayed trigger (``models/fast_infer.py``'s CUDA
+graphs) runs the same operations from ten launch calls.
+
+This file imports no JAX.  Its card tests run on the card by
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_spans.py
 """
 
+import collections
 import json
 import pathlib
 import sys
@@ -217,33 +222,52 @@ def test_profiler_trace_file_holds_the_program_spans(tmp_path):
     assert {"rsm.forward", *STAGES} <= names
 
 
-@pytest.mark.cuda
-def test_traced_v2_trigger_launches_match_its_device_operations():
-    """On the card: the launch calls inside ``rsm.forward`` of a traced
-    trigger (4 pairs) are one to one with the device operations it ran, and
-    its operations on the port's kernels are the wrappers' own count."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    from realtime_stereo_matcher_tpu_torch.kernels import LAUNCHES
-    from stereobench import stages, yardstick
-
+def _card_v2_frame():
+    """A bf16 v2 forward on the card and a trigger of 4 pairs, float32 and
+    uint8 copies of the same values; the float32 key is warmed up (eager,
+    captured, replayed), the uint8 key is new."""
     model = build_model({"type": MODELS["v2"], "parameters": {
         **PARAMS, "max_disp": 192}}, device="cuda").eval()
     forward = fast_infer.make_fast_forward(model, dtype=torch.bfloat16)
     g = torch.Generator(device="cuda").manual_seed(0)
     left, right = [torch.randint(0, 256, (4, 256, 512, 3), generator=g,
-                                 device="cuda").float() for _ in range(2)]
+                                 device="cuda", dtype=torch.uint8)
+                   for _ in range(2)]
     for _ in range(3):
-        forward(left, right)
+        forward(left.float(), right.float())
     torch.cuda.synchronize()
-    LAUNCHES.clear()
+    return forward, left, right
+
+
+def _traced_trigger(forward, left, right):
+    """The :class:`stereobench.stages.Stages` of one traced trigger."""
+    from stereobench import stages
+
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         with torch.profiler.record_function("bench.window"):
             forward(left, right)
             torch.cuda.synchronize()
-    st = stages.reduce(prof, window_span="bench.window", units=1)
+    return stages.reduce(prof, window_span="bench.window", units=1)
+
+
+@pytest.mark.cuda
+def test_traced_v2_trigger_launches_match_its_device_operations():
+    """On the card: the launch calls inside ``rsm.forward`` of a traced
+    eager trigger (4 pairs; the first call of its input key) are one to one
+    with the device operations it ran, and its operations on the port's
+    kernels are the wrappers' own count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from realtime_stereo_matcher_tpu_torch.kernels import LAUNCHES
+    from stereobench import stages, yardstick
+
+    forward, left, right = _card_v2_frame()
+    LAUNCHES.clear()
+    eager = forward.graph_stats["eager"]
+    st = _traced_trigger(forward, left, right)
+    assert forward.graph_stats["eager"] == eager + 1
     assert st.has_program
     launches = st.launches(stages.FRAME)
     assert launches > sum(LAUNCHES.values()) > 0
@@ -255,3 +279,53 @@ def test_traced_v2_trigger_launches_match_its_device_operations():
     assert len(port) == sum(LAUNCHES.values())
     assert st.device_ms(["rsm.extract", "rsm.cost", "rsm.refine"]) == \
         pytest.approx(st.device_ms(stages.FRAME), rel=0.05)
+
+
+def _op_name(name):
+    """A device operation's name, with CUPTI's names of a copy or a memset
+    made one: a graph's copy node reads ``Memcpy DtoD (Device -> Device)``
+    or ``memcpy128``, its memset node ``Memset (Unknown)`` where the same
+    call run eagerly reads ``Memset (Device)``."""
+    if name.startswith(("Memcpy DtoD", "memcpy")):
+        return "memcpy"
+    return "memset" if name.startswith("Memset") else name
+
+
+@pytest.mark.cuda
+def test_traced_v2_replayed_trigger_runs_the_eager_operations():
+    """On the card: a replayed trigger (the third call of its key) makes
+    ten launch calls inside ``rsm.forward``, the two input copies, five
+    ``cudaGraphLaunch`` (one in each stage's span) and the three negations;
+    its device operations are the eager trigger's, by name and count, and
+    the two copies; each has its launch, and the stages' device ms add up
+    to the frame's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from stereobench import stages
+
+    forward, left, right = _card_v2_frame()
+    eager = _traced_trigger(forward, left, right)
+    forward(left, right)                       # captures
+    replayed = _traced_trigger(forward, left, right)
+    assert forward.graph_stats == {"eager": 2, "captured": 2, "replayed": 2}
+
+    calls = collections.Counter(
+        "cudaGraphLaunch" if c.name.startswith("cudaGraphLaunch") else
+        "kernel" if c.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))
+        else c.name for c in replayed.calls_in(stages.FRAME)
+        if stages.is_launch(c.name))
+    assert calls == {"cudaMemcpyAsync": 2, "cudaGraphLaunch": 5, "kernel": 3}
+    assert replayed.launches(stages.FRAME) == 10
+    for name in STAGES:
+        assert sum(c.name.startswith("cudaGraphLaunch")
+                   for c in replayed.calls_in([name])) == 1, name
+
+    def ops(st):
+        return collections.Counter(_op_name(n) for n, _, _ in
+                                   st.launched_ops(stages.FRAME))
+
+    assert ops(replayed) == ops(eager) + collections.Counter(memcpy=2)
+    assert replayed.unlaunched_ops() == 0
+    assert replayed.syncs(stages.FRAME) == 0
+    assert replayed.device_ms(["rsm.extract", "rsm.cost", "rsm.refine"]) == \
+        pytest.approx(replayed.device_ms(stages.FRAME), rel=0.05)
