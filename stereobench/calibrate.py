@@ -6,9 +6,9 @@ benchmark's own runs).
 ``--kind`` names what runs in the program's place:
 
 * ``program``: the port, as a run drives it (the lower readings);
-* ``control``: the plain reference with every convolution's operands
-  rounded to float8 e4m3, the precision below the configuration's bfloat16
-  (the upper readings);
+* ``control``: the configuration's plain reference with every
+  convolution's operands rounded to float8 e4m3, the precision below the
+  configuration's bfloat16 (the upper readings);
 * a training cell's faults, planted in the port: ``half_batch`` (the step
   takes half the batch, its mean over the rest), ``stale_augment`` (the
   augmentation keyed by the next step: an answer altered where it is
@@ -33,13 +33,12 @@ import torch
 
 from stereobench import isolation
 from stereobench.loops import camera, train
-from stereobench.reference import mobilestereonet as reference
+from stereobench.reference.rounding import round_fp8
 from stereobench.run import load_cell
 
 
-def camera_control(model_config, state_dict, device):
-    return camera.reference_program(model_config, state_dict, device,
-                                    rounding=reference.round_fp8)
+def camera_control(cell, state_dict):
+    return camera.reference_program(cell, state_dict, rounding=round_fp8)
 
 
 class HalfBatch(train.PortTrainer):
@@ -90,7 +89,7 @@ def reading(cell, program, seconds: float) -> dict:
         p.forward = None
         if cell.device.type == "cuda":
             torch.cuda.empty_cache()
-        return camera.check_errors(p, cell.device, loop.kept)
+        return camera.check_errors(cell, p, loop.kept)
     trainer, sd, scene_data, followed = train.prepare(cell, program)
     del trainer
     if cell.device.type == "cuda":

@@ -10,12 +10,14 @@ synchronises, and the next trigger goes out at its due time or, if that
 has passed, at once.  A trigger's latency runs from its due time to the
 end of that synchronise, so a late start counts.
 
-The program is the port's bf16 kernel path,
-``models/fast_infer.make_fast_forward``, on a model of the configuration
-with the benchmark's seeded weights.  The check compares the three
-disparity maps (coarse to fine) of ``check_triggers`` triggers drawn from
-the seed, as the timed path produced them, with the plain float32
-reference (``stereobench/reference/``) on the same inputs and weights.
+The program is the port's own inference route,
+``eval/validators.ModelRunner``, in the configuration's ``dtype``, on a
+model of the configuration with the benchmark's seeded weights
+(:func:`port_program`).  The check compares every disparity map the
+program returns (coarse to fine) for ``check_triggers`` triggers drawn
+from the seed, as the timed path produced them, with the configuration's
+plain float32 reference (the module its ``reference`` key names) on the
+same inputs and weights.
 """
 
 from __future__ import annotations
@@ -30,34 +32,50 @@ import time
 import torch
 
 from stereobench import scenes, trace, weights, yardstick
-from stereobench.reference import mobilestereonet as reference
+from stereobench.reference.rounding import float32_exact, set_operand_rounding
 
 PROFILED_SECONDS = 0.5  # length of the traced sub-window
 
 
-def port_program(model_config: dict, state_dict: dict, device):
-    """The system under test: the port's kernel-path forward (bf16)."""
+def config_dtype(config: dict) -> torch.dtype:
+    """The floating type the configuration file's ``dtype`` names."""
+    dtype = getattr(torch, str(config.get("dtype")), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"the configuration's key 'dtype' has to name a "
+                         f"torch floating type, not {config.get('dtype')!r}")
+    return dtype
+
+
+def port_program(cell, state_dict: dict):
+    """The system under test: the route the port's evaluation runs a model
+    on (``eval/validators.ModelRunner``, as ``evaluate.build_runner``
+    builds it) in the configuration's dtype.  A model with a kernel path
+    (v1, v2, v3) runs it: on a card the ``GraphPolicy`` of
+    ``models/fast_infer.make_fast_forward``, on the CPU its kernels' plain
+    versions.  Any other (V4, DispNetC) runs its plain forward, on a card
+    under autocast to the dtype, on the CPU in float32."""
+    from realtime_stereo_matcher_tpu_torch.eval.validators import ModelRunner
     from realtime_stereo_matcher_tpu_torch.models import build_model
     from realtime_stereo_matcher_tpu_torch.models.fast_infer import (
-        make_fast_forward,
+        has_kernel_path,
     )
-    net = build_model(model_config, device=device)
+    net = build_model(cell.config["model"], device=cell.device)
     net.load_state_dict(state_dict)
-    return make_fast_forward(net, dtype=torch.bfloat16)
+    return ModelRunner(net, fast=True if has_kernel_path(net) else "auto",
+                       dtype=config_dtype(cell.config), device=cell.device)
 
 
-def reference_program(model_config: dict, state_dict: dict, device, *,
-                      rounding=None):
-    """The plain reference as a program: float32, TF32 off, its
-    convolutions' operands through ``rounding`` where one is given (the
-    check's control: :func:`reference.round_fp8`)."""
-    ref = reference.build(model_config, device)
+def reference_program(cell, state_dict: dict, *, rounding=None):
+    """The configuration's plain reference as a program: float32, TF32
+    off, its convolutions' operands through ``rounding`` where one is given
+    (the check's control: ``rounding.round_fp8``)."""
+    ref = cell.reference.build(cell.config["model"], cell.device)
     ref.load_state_dict(state_dict)
-    reference.set_operand_rounding(ref, rounding)
+    set_operand_rounding(ref, rounding)
 
     @torch.no_grad()
     def forward(left, right):
-        with reference.float32_exact():
+        with float32_exact():
             return ref(left, right)
 
     return forward
@@ -99,8 +117,8 @@ def _wait_until(t: float) -> None:
 
 def pair_errors(outs, refs) -> dict:
     """``worst_pair_epe_px``: the largest mean |program - reference| (px)
-    over the maps and pairs of one trigger; a non-finite output reads as
-    infinite."""
+    over the maps (as many as the program returns) and pairs of one
+    trigger; a non-finite output reads as infinite."""
     worst = 0.0
     for o, r in zip(outs, refs):
         if not bool(torch.isfinite(o).all()):
@@ -118,7 +136,6 @@ class Prepared:
     left: torch.Tensor        # (pool, rigs, H, W, 3) uint8
     right: torch.Tensor
     state_dict: dict
-    model_config: dict
 
 
 def prepare(cell, program=port_program) -> Prepared:
@@ -130,7 +147,8 @@ def prepare(cell, program=port_program) -> Prepared:
     rigs, h, w, pool = t["rigs"], t["height"], t["width"], t["pool_per_rig"]
 
     phases = Phases(dev)
-    sd = weights.seeded_state_dict(reference.build(model_cfg, "meta"), seed, dev)
+    sd = weights.seeded_state_dict(cell.reference.build(model_cfg, "meta"),
+                                   seed, dev)
     phases("weights")
     left, right = scenes.make_pairs(pool * rigs, h, w, max_disp=t["max_disp_px"],
                                     seed=seed + 1, device=dev)
@@ -138,18 +156,18 @@ def prepare(cell, program=port_program) -> Prepared:
     left = left.view(rigs, pool, h, w, 3).transpose(0, 1).contiguous()
     right = right.view(rigs, pool, h, w, 3).transpose(0, 1).contiguous()
     phases("scenes")
-    with reference.float32_exact():
-        sd = weights.calibrate_batchnorm(reference.build(model_cfg, dev), sd,
-                                         (left[0], right[0]))
+    with float32_exact():
+        sd = weights.calibrate_batchnorm(cell.reference.build(model_cfg, dev),
+                                         sd, (left[0], right[0]))
     phases("batch-norm statistics")
-    forward = program(model_cfg, sd, dev)
+    forward = program(cell, sd)
     phases("program built")
     for j in range(min(3, pool)):
         forward(left[j], right[j])
     phases("warm-up")
     print("set-up: " + ", ".join(f"{k} {v:.2f} s" for k, v in phases.seconds),
           file=sys.stderr, flush=True)
-    return Prepared(forward, left, right, sd, model_cfg)
+    return Prepared(forward, left, right, sd)
 
 
 class Phases:
@@ -232,10 +250,10 @@ def open_loop(p: Prepared, device, *, rate_hz: float, seconds: float,
     return Loop(lat, host, service, kept, window_s, n_due, prof, traced)
 
 
-def check_errors(p: Prepared, device, kept: dict) -> dict:
+def check_errors(cell, p: Prepared, kept: dict) -> dict:
     """:func:`pair_errors` of the kept answers against the reference, run
     here trigger by trigger, the worst over the triggers."""
-    ref = reference_program(p.model_config, p.state_dict, device)
+    ref = reference_program(cell, p.state_dict)
     pool = p.left.shape[0]
     per = [pair_errors(kept[k], ref(p.left[k % pool], p.right[k % pool]))
            for k in sorted(kept)]
@@ -266,9 +284,9 @@ def run(cell, program=port_program) -> Window:
     p.forward = None
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    errors = check_errors(p, dev, loop.kept)
+    errors = check_errors(cell, p, loop.kept)
     # the work of a trigger, counted on the reference on the meta device
-    meta_ref = reference.build(p.model_config, "meta")
+    meta_ref = cell.reference.build(cell.config["model"], "meta")
     shape = torch.empty(p.left.shape[1:], device="meta")
     flops = yardstick.model_flops(meta_ref, (shape, shape))
     _, conv_least = yardstick.conv_work(meta_ref, (shape, shape))

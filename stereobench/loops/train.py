@@ -9,18 +9,19 @@ train section) and ``data`` (``image_size``, ``spatial_scale``,
 per-epoch permutation of the scenes drawn from the seed: the port's
 resident fetch (``data/device_cache.fetch_scene_batch``), its augmentation
 on the card keyed by k (``data/device_augment.make_device_augment``), and
-its bf16 kernel-path step (``models/fast_train.make_fast_train_step``,
-SequenceLoss, clip + AdamW + OneCycle).  No step waits for the card; the
-window ends with one synchronise.
+the step the port's trainer would take, in the configuration's ``dtype``
+(SequenceLoss, clip + AdamW + OneCycle; :class:`PortTrainer`).  No step
+waits for the card; the window ends with one synchronise.
 
 Set-up drives the step through its first three steps, on rows that all
 differ, and hands the same object to the window.  The check follows those
-three steps with the plain float32 reference (``stereobench/reference/``)
-from the same weights and scenes: the augmented batches, each step's loss,
-the first gradient as the optimizer got it (AdamW's first moment after one
-step over 1 - beta1) and the change of every parameter and BatchNorm
-statistic after three steps.  A step of the window whose loss, read once
-the window has closed, is not finite counts as failed.
+three steps with the configuration's plain float32 reference (the module
+its ``reference`` key names) from the same weights and scenes: the
+augmented batches, each step's loss, the first gradient as the optimizer
+got it (AdamW's first moment after one step over 1 - beta1) and the change
+of every parameter and BatchNorm statistic after three steps.  A step of
+the window whose loss, read once the window has closed, is not finite
+counts as failed.
 """
 
 from __future__ import annotations
@@ -35,9 +36,13 @@ import numpy as np
 import torch
 
 from stereobench import scenes, trace, weights, yardstick
-from stereobench.loops.camera import Phases
-from stereobench.reference import mobilestereonet as reference
+from stereobench.loops.camera import Phases, config_dtype
 from stereobench.reference import training as ref_train
+from stereobench.reference.rounding import (
+    float32_exact,
+    round_fp8,
+    set_operand_rounding,
+)
 
 CHECK_STEPS = 3
 PROFILED_STEPS = 4   # steps of the traced sub-window
@@ -61,9 +66,15 @@ def _float_state(module) -> dict:
 
 class PortTrainer:
     """The system under test: the port's resident fetch, augmentation and
-    bf16 kernel-path step on one model and optimizer."""
+    step on one model and optimizer.  The step is the one the port's
+    trainer (``train/trainer.train``) takes: the kernel path
+    (``models/fast_train.make_fast_train_step``) where
+    ``fast_step_supported`` holds for the model and the traffic's crop, else
+    the plain step (``train/trainer.make_train_step``), in the
+    configuration's dtype."""
 
-    def __init__(self, model_config, state_dict, device, traffic, scene_data):
+    def __init__(self, cell, state_dict, scene_data):
+        from realtime_stereo_matcher_tpu_torch.config import load_config
         from realtime_stereo_matcher_tpu_torch.data.device_augment import (
             AugmentSpec,
             make_device_augment,
@@ -73,22 +84,33 @@ class PortTrainer:
         )
         from realtime_stereo_matcher_tpu_torch.models import build_model
         from realtime_stereo_matcher_tpu_torch.models.fast_train import (
+            fast_step_supported,
             make_fast_train_step,
         )
         from realtime_stereo_matcher_tpu_torch.train.optim import make_optimizer
-        from realtime_stereo_matcher_tpu_torch.train.trainer import TrainState
+        from realtime_stereo_matcher_tpu_torch.train.trainer import (
+            TrainState,
+            make_train_step,
+        )
 
+        traffic = cell.traffic
         tcfg = traffic["train"]
-        self.model = build_model(model_config, device=device)
+        self.model = build_model(cell.config["model"], device=cell.device)
         self.model.load_state_dict(state_dict)
         self.model.train()
         self.tx, _ = make_optimizer(self.model.parameters(), tcfg["learn_rate"],
                                     tcfg["num_of_steps"], tcfg["weight_decay"])
         self.state = TrainState(self.model, self.tx)
-        self.step_fn = make_fast_train_step(self.model, self.tx,
-                                            tcfg["loss"]["parameters"],
-                                            tcfg["loss"]["type"],
-                                            dtype=torch.bfloat16)
+        exp_config = load_config({
+            "model": cell.config["model"], "data": traffic["data"],
+            "train": dict(tcfg, batch_size=traffic["batch_size"])})
+        make_step = (make_fast_train_step
+                     if fast_step_supported(self.model, exp_config)
+                     else make_train_step)
+        self.step_fn = make_step(self.model, self.tx,
+                                 tcfg["loss"]["parameters"],
+                                 tcfg["loss"]["type"],
+                                 dtype=config_dtype(cell.config))
         left, right, disp = scene_data
         # the resident pack's layout: uint8 views, the disparity as 16-bit
         # fixed-point words held as int16 bit patterns
@@ -118,17 +140,17 @@ class PortTrainer:
 
 
 class ReferenceTrainer:
-    """The reference's step (float32, TF32 off) as a program; with
-    ``rounding``, every convolution's operands rounded first (the check's
-    control)."""
+    """The configuration's reference's step (float32, TF32 off) as a
+    program; with ``rounding``, every convolution's operands rounded first
+    (the check's control)."""
 
-    def __init__(self, model_config, state_dict, device, traffic, scene_data,
-                 rounding=None):
+    def __init__(self, cell, state_dict, scene_data, rounding=None):
+        traffic = cell.traffic
         tcfg = traffic["train"]
-        self.model = reference.build(model_config, device)
+        self.model = cell.reference.build(cell.config["model"], cell.device)
         self.model.load_state_dict(state_dict)
         self.model.train()
-        reference.set_operand_rounding(self.model, rounding)
+        set_operand_rounding(self.model, rounding)
         self.update = ref_train.Update(self.model.parameters(),
                                        learn_rate=tcfg["learn_rate"],
                                        weight_decay=tcfg["weight_decay"],
@@ -146,7 +168,7 @@ class ReferenceTrainer:
     def step(self, k: int, idx):
         batch = self.batch(k, idx)
         img1, img2, flow, valid = batch
-        with reference.float32_exact():
+        with float32_exact():
             self.update.adamw.zero_grad(set_to_none=True)
             loss = ref_train.sequence_loss(self.model(img1, img2), flow, valid,
                                            **self.loss_params)
@@ -167,7 +189,7 @@ def port_program(*args):
 
 
 def control_program(*args):
-    return ReferenceTrainer(*args, rounding=reference.round_fp8)
+    return ReferenceTrainer(*args, rounding=round_fp8)
 
 
 def index_table(seed: int, n_scenes: int, batch: int, steps: int, device):
@@ -276,13 +298,14 @@ def prepare(cell, program=port_program):
     dev, seed = cell.device, cell.seed
     phases = Phases(dev)
     model_cfg = cell.config["model"]
-    sd = weights.seeded_state_dict(reference.build(model_cfg, "meta"), seed, dev)
+    sd = weights.seeded_state_dict(cell.reference.build(model_cfg, "meta"),
+                                   seed, dev)
     phases("weights")
     h, w = t["scene_hw"]
     scene_data = scenes.make_scenes(t["scenes"], h, w, max_disp=t["max_disp_px"],
                                     seed=seed + 1, device=dev)
     phases("scenes")
-    trainer = program(model_cfg, sd, dev, t, scene_data)
+    trainer = program(cell, sd, scene_data)
     phases("program built")
     followed = follow(trainer, index_table(seed, t["scenes"], t["batch_size"],
                                            CHECK_STEPS, dev))
@@ -296,7 +319,7 @@ def reference_readings(cell, sd, scene_data, followed: Followed) -> dict:
     """The reference's first steps from the same weights and scenes, and
     the numbers :func:`compare` gives."""
     t = cell.traffic
-    ref = ReferenceTrainer(cell.config["model"], sd, cell.device, t, scene_data)
+    ref = ReferenceTrainer(cell, sd, scene_data)
     ref_followed = follow(ref, index_table(cell.seed, t["scenes"], t["batch_size"],
                                            CHECK_STEPS, cell.device))
     return compare(followed, ref_followed)
@@ -361,7 +384,7 @@ def run(cell, program=port_program) -> Window:
                                          "ok": nonfinite == 0}
 
     # the work of a step, counted on the reference on the meta device
-    meta_ref = reference.build(cell.config["model"], "meta").train()
+    meta_ref = cell.reference.build(cell.config["model"], "meta").train()
     ch, cw = t["data"]["image_size"]
     shape = torch.empty((t["batch_size"], ch, cw, 3), device="meta")
     _, conv_least = yardstick.conv_work(meta_ref, (shape, shape), backward=True)

@@ -8,74 +8,28 @@ stereo_net.py``, ``models/layers.py``, ``ops/cost_volume.py``,
 of the kernel path (zero outside tap offsets ``[-1, max_shift + 1]``).
 
 It is plain PyTorch, imports nothing of the port or of JAX, and runs in
-float32 with TF32 off (:func:`float32_exact`).  In train mode its
+float32 with TF32 off (``rounding.float32_exact``).  In train mode its
 BatchNorms follow flax, as the port's training path does (the port's
 ``models/layers.py`` ``_FlaxBatchNorm``).  Module names follow the
 reference torch model, so the port's ``state_dict()`` loads as it is.
 
-:func:`set_operand_rounding` makes it the check's control: every
-convolution then rounds its input and weight to float8 (e4m3, per-tensor
-scale to the format's largest value) and computes in float32, the
-precision below the configuration's bfloat16.
+Its convolutions are the shared classes of ``rounding.py``, so
+``rounding.set_operand_rounding`` makes it the check's control.
 """
 
 from __future__ import annotations
 
-import contextlib
-from typing import Callable, Sequence
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from stereobench.reference.rounding import Conv2d, Conv3d, ConvTranspose2d
+
 BN_EPS = 1e-5
 LEAKY_SLOPE = 0.2
 DIFFERENCE_FILL = 1.0
-FP8 = torch.float8_e4m3fn
-
-
-def round_fp8(x: torch.Tensor) -> torch.Tensor:
-    """``x`` through float8 e4m3 with one scale for the tensor (its largest
-    magnitude maps to the format's largest value), back in x's type.  Where
-    ``x`` needs a gradient it passes straight through (a cast's backward
-    would round the gradient to float8 too, and zero the small ones)."""
-    xd = x.detach()
-    amax = xd.abs().amax().float().clamp(min=1e-12)
-    scale = torch.finfo(FP8).max / amax
-    q = ((xd.float() * scale).to(FP8).float() / scale).to(x.dtype)
-    return x + (q - xd) if x.requires_grad else q
-
-
-class _Rounded:
-    """A convolution whose input and weight pass through ``rounding``
-    first (None: unrounded)."""
-
-    rounding: Callable | None = None
-
-    def _operands(self, x):
-        if self.rounding is None:
-            return x, self.weight
-        return self.rounding(x), self.rounding(self.weight)
-
-
-class Conv2d(_Rounded, nn.Conv2d):
-    def forward(self, x):
-        x, w = self._operands(x)
-        return self._conv_forward(x, w, self.bias)
-
-
-class Conv3d(_Rounded, nn.Conv3d):
-    def forward(self, x):
-        x, w = self._operands(x)
-        return self._conv_forward(x, w, self.bias)
-
-
-class ConvTranspose2d(_Rounded, nn.ConvTranspose2d):
-    def forward(self, x):
-        x, w = self._operands(x)
-        return F.conv_transpose2d(x, w, self.bias, self.stride, self.padding,
-                                  self.output_padding, self.groups,
-                                  self.dilation)
 
 
 class SameConv2d(Conv2d):
@@ -88,28 +42,6 @@ class SameConv2d(Conv2d):
     def forward(self, x):
         h, w = x.shape[-2:]
         return super().forward(F.pad(x, (1, 1 + w % 2, 1, 1 + h % 2)))
-
-
-def set_operand_rounding(model: nn.Module, rounding: Callable | None):
-    """Give every convolution of ``model`` this operand rounding (None
-    takes it away)."""
-    for m in model.modules():
-        if isinstance(m, _Rounded):
-            m.rounding = rounding
-
-
-@contextlib.contextmanager
-def float32_exact():
-    """float32 matrix products and convolutions without TF32."""
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
 
 
 class _FlaxTrainMode:

@@ -3,8 +3,9 @@
     python3 -m stereobench.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 From the root of a checkout.  Everything is found by name: the cell in
-``BENCHMARK.json``'s ``workloads``; its configuration's file there; its
-traffic in ``stereobench/traffic/<traffic>.json``, whose ``loop`` names the
+``BENCHMARK.json``'s ``workloads``; its configuration's file there, and
+the plain reference that file's ``reference`` key names; its traffic in
+``stereobench/traffic/<traffic>.json``, whose ``loop`` names the
 generator ``stereobench/loops/<loop>.py``; its limits in
 ``stereobench/workloads/<cell>.json``; each metric's reader in
 ``stereobench/metrics/<metric>.py``.  With ``--trace 0`` the line carries the
@@ -27,6 +28,7 @@ import json  # noqa: E402
 import os  # noqa: E402
 import pathlib  # noqa: E402
 import sys  # noqa: E402
+import types  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 HERE = ROOT / "stereobench"
@@ -55,6 +57,7 @@ class Cell:
     limits: dict
     device: torch.device
     t0: float
+    reference: types.ModuleType   # the configuration's plain reference
 
 
 def _json(path: pathlib.Path) -> dict:
@@ -70,23 +73,46 @@ def load_cell(name: str, *, seed: int, seconds: float, trace: bool,
     if entry is None:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
     config = next(c for c in bench["configs"] if c["name"] == entry["config"])
+    config_file = _json(root / config["file"])
     cell = Cell(name=name, seed=seed, seconds=seconds, trace=trace,
-                chips=entry["chips"], config=_json(root / config["file"]),
+                chips=entry["chips"], config=config_file,
                 traffic=_json(root / "stereobench" / "traffic"
                               / f"{entry['traffic']}.json"),
                 limits=_json(root / "stereobench" / "workloads"
                              / f"{name}.json")["limits"],
-                device=torch.device(device), t0=t0)
+                device=torch.device(device), t0=t0,
+                reference=load_reference(config_file, config["file"], root))
     kind = "per_layer" if trace else "end_to_end"
     metrics = [m for m in bench[kind] if name in m.get("workloads", [name])]
     return cell, metrics
 
 
-def _load_file(path: pathlib.Path):
+def _load_file(path: pathlib.Path, package: str = "stereobench.metrics"):
     spec = importlib.util.spec_from_file_location(
-        "stereobench.metrics." + path.stem.replace(".", "_"), path)
+        f"{package}.{path.stem.replace('.', '_')}", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
+    return module
+
+
+def load_reference(config: dict, where: str, root: pathlib.Path = ROOT):
+    """The module that the configuration's ``reference`` key names: a
+    ``.py`` file under ``root``, with ``build(model_config, device)``.
+    ``where`` names the configuration's file in the messages."""
+    rel = config.get("reference")
+    path = root / rel if isinstance(rel, str) and rel.endswith(".py") else None
+    if path is None or not path.is_file():
+        raise ValueError(f"{where}: its key 'reference' has to name the .py "
+                         f"file of its plain reference under the checkout, "
+                         f"not {rel!r}")
+    try:
+        module = _load_file(path, "stereobench.reference")
+    except (OSError, SyntaxError, ImportError) as e:
+        raise ValueError(f"{where}: the module that its key 'reference' "
+                         f"names ({rel}) does not load: {e}") from e
+    if not callable(getattr(module, "build", None)):
+        raise ValueError(f"{where}: the module that its key 'reference' "
+                         f"names ({rel}) has no build(model_config, device)")
     return module
 
 

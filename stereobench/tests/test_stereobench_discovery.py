@@ -1,6 +1,6 @@
-"""A cell, a traffic mix and a metric are taken by name from new files,
-with no edit to a file that is there; a CPU run of a small cell goes
-through the whole harness."""
+"""A configuration (with its own reference module), a cell, a traffic mix
+and a metric are taken by name from new files, with no edit to a file that
+is there; a CPU run of a small cell goes through the whole harness."""
 
 import json
 import shutil
@@ -13,10 +13,25 @@ from stereobench import run
 from stereobench.run import ROOT
 
 
+# appended to the new reference module: which devices its build served
+_COUNTED_BUILD = """
+
+BUILDS = []
+_build = build
+
+
+def build(model_config, device="cpu"):
+    BUILDS.append(str(device))
+    return _build(model_config, device)
+"""
+
+
 @pytest.fixture
 def checkout(tmp_path):
     """A copy of the benchmark's files, with one new cell, traffic mix and
-    per-layer metric added as new files and new entries."""
+    per-layer metric, and one new configuration (its file and its own
+    reference module, a copy of v3's that counts its builds) with a cell,
+    added as new files and new entries."""
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
     shutil.copytree(ROOT / "stereobench", tmp_path / "stereobench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
@@ -28,8 +43,22 @@ def checkout(tmp_path):
                                "better": "higher", "source": "host_clock",
                                "layer": "test", "moves": "frame_p95_ms",
                                "workloads": ["v2-tiny-new"]})
+    bench["configs"].append({"name": "v3-own-reference", "source": "a test",
+                             "file": "stereobench/configs/v3-own-reference.json",
+                             "reduced": [], "why": "a configuration added by files alone"})
+    bench["workloads"].append({"name": "v3-own-tiny", "config": "v3-own-reference",
+                               "traffic": "tiny-new", "chips": 1,
+                               "why": "a cell of a configuration added by files alone"})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     sb = tmp_path / "stereobench"
+    v3 = json.loads((sb / "configs" / "mobilestereonet-v3.json").read_text())
+    (sb / "configs" / "v3-own-reference.json").write_text(json.dumps(
+        dict(v3, name="v3-own-reference",
+             reference="stereobench/reference/own_v3.py")))
+    (sb / "reference" / "own_v3.py").write_text(
+        (sb / "reference" / "mobilestereonet.py").read_text() + _COUNTED_BUILD)
+    (sb / "workloads" / "v3-own-tiny.json").write_text(json.dumps(
+        {"limits": {"worst_pair_epe_px": 4.0}}))
     (sb / "traffic" / "tiny-new.json").write_text(json.dumps({
         "loop": "camera", "rigs": 2, "height": 32, "width": 64,
         "rate_hz": 20, "pool_per_rig": 2, "max_disp_px": 24,
@@ -59,6 +88,49 @@ def test_new_files_are_found_by_name(checkout):
     after = {p.name: p.read_bytes() for p in (ROOT / "stereobench").rglob("*")
              if p.is_file() and "__pycache__" not in p.parts}
     assert before == after
+
+
+def _snapshot():
+    return {p.relative_to(ROOT): p.read_bytes()
+            for p in (ROOT / "stereobench").rglob("*")
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def test_a_configuration_with_its_own_reference_is_found_by_name(checkout):
+    before = _snapshot()
+    torch.set_num_threads(2)
+    cell, metrics = run.load_cell("v3-own-tiny", seed=2**31 + 5, seconds=0.5,
+                                  trace=False, device="cpu",
+                                  t0=time.perf_counter(), root=checkout)
+    assert cell.config["name"] == "v3-own-reference"
+    assert cell.reference.__file__ == str(checkout / "stereobench" / "reference"
+                                          / "own_v3.py")
+    result = run.run_cell(cell, metrics, root=checkout)
+    assert result["correct"] is True, result["checks"]
+    assert result["checks"]["worst_pair_epe_px"]["value"] > 0
+    # the weights, the check and the work counted all came from it
+    assert cell.reference.BUILDS.count("meta") == 2
+    assert cell.reference.BUILDS.count("cpu") == 2
+    assert _snapshot() == before
+
+
+@pytest.mark.parametrize("reference", [
+    None, "stereobench/reference/absent.py", "stereobench/configs",
+    "stereobench/reference/__init__.py", 7])
+def test_a_configuration_whose_reference_is_missing_fails_set_up(checkout,
+                                                                 reference):
+    """No key, a file that is not there, a directory, a module with no
+    ``build``, a value that is no path: each fails naming the key."""
+    path = checkout / "stereobench" / "configs" / "v3-own-reference.json"
+    cfg = json.loads(path.read_text())
+    if reference is None:
+        del cfg["reference"]
+    else:
+        cfg["reference"] = reference
+    path.write_text(json.dumps(cfg))
+    with pytest.raises(ValueError, match="key 'reference'"):
+        run.load_cell("v3-own-tiny", seed=1, seconds=0.5, trace=False,
+                      device="cpu", t0=time.perf_counter(), root=checkout)
 
 
 @pytest.mark.parametrize("workload", ["v2-720p-rigs4", "v3-720p-cam1"])

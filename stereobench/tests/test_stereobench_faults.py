@@ -11,11 +11,10 @@ import torch
 
 from stereobench import calibrate, run
 from stereobench.loops import camera, train
-from stereobench.reference import mobilestereonet as reference
 
 
-def _altered(model_config, sd, device):
-    forward = camera.port_program(model_config, sd, device)
+def _altered(cell, sd):
+    forward = camera.port_program(cell, sd)
 
     def broken(left, right):
         out = forward(left, right)
@@ -24,8 +23,8 @@ def _altered(model_config, sd, device):
     return broken
 
 
-def _half_batch(model_config, sd, device):
-    forward = camera.port_program(model_config, sd, device)
+def _half_batch(cell, sd):
+    forward = camera.port_program(cell, sd)
 
     def broken(left, right):
         half = max(1, left.shape[0] // 2)
@@ -35,8 +34,8 @@ def _half_batch(model_config, sd, device):
     return broken
 
 
-def _stale(model_config, sd, device):
-    forward = camera.port_program(model_config, sd, device)
+def _stale(cell, sd):
+    forward = camera.port_program(cell, sd)
     last = []
 
     def broken(left, right):

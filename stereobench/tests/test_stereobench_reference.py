@@ -5,10 +5,15 @@ import json
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
-from stereobench import weights
+from stereobench import run, weights
 from stereobench.reference import mobilestereonet as reference
+from stereobench.reference import rounding
+from stereobench.reference.rounding import round_fp8
 from stereobench.run import ROOT
+
+CONFIGS = json.loads((ROOT / "BENCHMARK.json").read_text())["configs"]
 
 
 def _model_config(name):
@@ -54,7 +59,7 @@ def test_seeded_weights_cover_every_tensor(config, params):
 
 def test_fp8_rounding_is_coarser_than_bf16():
     x = torch.randn(4096, generator=torch.Generator().manual_seed(0))
-    fp8 = (reference.round_fp8(x) - x).abs().max() / x.abs().max()
+    fp8 = (round_fp8(x) - x).abs().max() / x.abs().max()
     bf16 = (x.to(torch.bfloat16).float() - x).abs().max() / x.abs().max()
     assert 4 * bf16 < fp8 < 0.1
 
@@ -73,3 +78,35 @@ def test_batchnorm_statistics_are_the_inputs():
         g = net[3](net[2](net[1](h)))  # the second BatchNorm sees the first's output
         torch.testing.assert_close(out["4.running_mean"], g.mean((0, 2, 3)))
     assert torch.equal(out["0.weight"], sd["0.weight"])
+
+
+class _Convolutions(TorchDispatchMode):
+    """Counts the convolutions that reach the dispatcher."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.convolution.default:
+            self.count += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in CONFIGS])
+def test_the_control_rounds_every_convolution_of_each_reference(config):
+    """Every convolution of the reference that the configuration names is a
+    shared rounding class, and no other convolution runs in its forward: the
+    float8 control rounds both operands of each one."""
+    entry = next(c for c in CONFIGS if c["name"] == config)
+    cfg = json.loads((ROOT / entry["file"]).read_text())
+    ref = run.load_reference(cfg, entry["file"]).build(cfg["model"], "meta")
+    convs = [m for m in ref.modules()
+             if isinstance(m, torch.nn.modules.conv._ConvNd)]
+    assert convs and all(isinstance(m, rounding._Rounded) for m in convs)
+    rounded = []
+    rounding.set_operand_rounding(ref, lambda x: rounded.append(x.shape) or x)
+    x = torch.empty((1, 64, 128, 3), device="meta")
+    with torch.no_grad(), _Convolutions() as seen:
+        ref(x, x)
+    assert seen.count > 0 and len(rounded) == 2 * seen.count
